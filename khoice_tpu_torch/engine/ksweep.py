@@ -1,0 +1,238 @@
+"""Shared-sort k-sweep: every k's occurrence histogram from ONE sort
+(port of khoice_tpu/engine/ksweep.py; the trick is documented there).
+
+In short: sort the forward kmax-mers of the DOUBLED text (each member
+followed by its reverse complement) once; every k <= kmax then groups
+into contiguous runs of equal top-2k bits.  A segmented OR-scan of
+one-hot member masks over each k-run gives the run's distinct-member
+count, and since every non-palindromic canonical class appears as two
+runs and a palindromic one (even k only) as one,
+
+    hist_canonical = (hist_doubled + hist_palindromic) // 2     (exact)
+
+Key layout.  torch has no shifts or comparisons on uint32/uint64 on the
+CPU, so a sorted array is ONE contiguous int64 tensor [KW, n]: row w is
+key word w (MSB-first, the kmax-mer left-aligned in KW*32 bits), each
+entry a 32-bit value in [0, 2^32).  Every left shift is masked back to
+32 bits and no negative value is ever right-shifted.  The payload (gid,
+nio) rides in the spare low bits of the last word when they fit
+(`packed`), else in a separate int64 [n] tensor.  The layout's constants,
+its bit helpers and the plain multi-k scan live beside the scan kernel's
+wrapper (kernels/ksweep_scan.py).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels.ksweep_scan import (  # noqa: F401  (scan_multi_k_reference re-exported)
+    MASK_MEMBERS,
+    NIO_BITS,
+    PACK_GID_BITS,
+    PACK_MIN_SPARE,
+    PACK_NIO_BITS,
+    _U32,
+    scan_multi_k,
+    scan_multi_k_reference,
+)
+from .occurrence import occ_words_static, pack_members
+
+
+def _pack_spare(kmax: int, KW: int) -> int:
+    return KW * 32 - 2 * kmax
+
+
+def can_pack_payload(kmax: int, KW: int) -> bool:
+    return _pack_spare(kmax, KW) >= PACK_MIN_SPARE
+
+
+def sweep_classes(ks: Sequence[int]) -> List[tuple]:
+    """Partition a k grid into shared-sort classes [(kmax, KW, ks), ...].
+
+    One class per key-word count KW = ceil(2*kmax/32); ks needing one word
+    are merged into the two-word class when one exists.
+    """
+    ks = sorted(set(int(k) for k in ks))
+    if not ks:
+        return []
+    buckets: Dict[int, List[int]] = {}
+    for k in ks:
+        if k < 2 or k > 63:
+            raise ValueError(f"k={k} outside supported sweep range [2, 63]")
+        buckets.setdefault((2 * k + 31) // 32, []).append(k)
+    if 1 in buckets and 2 in buckets:
+        buckets[2] = buckets.pop(1) + buckets[2]
+    return [
+        (max(bks), (2 * max(bks) + 31) // 32, tuple(sorted(bks)))
+        for _, bks in sorted(buckets.items())
+    ]
+
+
+def plan_sweep(ks: Sequence[int], n_members: int,
+               mask_limit: int = MASK_MEMBERS):
+    """Choose the sort plan: ([(kmax, KW, cks, packed)], per_k_fallback_ks).
+
+    Costed in sorted words per text position (doubled text counts x2):
+    SPLIT sorts once per key-word class with >= 3 ks (smaller classes go
+    to the per-k path, which sorts occ_words_static(k) words over the
+    undoubled text); MASTER sorts once at kmax = max(ks) for every k.
+    The cheaper plan wins; n_members above the mask limit disables the
+    sweep.  Equal to khoice_tpu.engine.ksweep.plan_sweep at the same
+    mask_limit; the default is exp1's 64 (the JAX default of 32 serves its
+    classification scans, not ported).
+    """
+    ks = sorted(set(int(k) for k in ks))
+    if n_members > mask_limit or n_members > (1 << PACK_GID_BITS):
+        return [], ks
+    if len(ks) < 3:
+        return [], ks
+
+    split_classes = []
+    split_rest: List[int] = []
+    split_cost = 0.0
+    for kmax, KW, cks in sweep_classes(ks):
+        if len(cks) < 3:
+            split_rest.extend(cks)
+            split_cost += sum(occ_words_static(k) for k in cks)
+        else:
+            packed = can_pack_payload(kmax, KW)
+            split_classes.append((kmax, KW, cks, packed))
+            split_cost += 2 * (KW if packed else KW + 1)
+
+    kmax_m = max(ks)
+    KW_m = (2 * kmax_m + 31) // 32
+    packed_m = can_pack_payload(kmax_m, KW_m)
+    master_cost = 2 * (KW_m if packed_m else KW_m + 1)
+
+    if master_cost < split_cost:
+        return [(kmax_m, KW_m, tuple(ks), packed_m)], []
+    return split_classes, split_rest
+
+
+def _extract_fwd_sweep(codes2: torch.Tensor, gids2: torch.Tensor, kmax: int,
+                       KW: int, packed: bool = False):
+    """Forward kmax-mer keys (int64 [KW, n], left-aligned) and payload.
+
+    codes2: uint8 [n] codes (4 = invalid); gids2: int64 [n].  Word w of
+    position i packs bases [i+16w, i+16w+16), so one 16-base packing of
+    an extended range yields every word as a slice.  nio (consecutive
+    valid bases from i, capped at kmax) is the distance to the next
+    invalid position.  Bases at invalid positions pack as 0; bases after
+    one inside the window keep their values, which no k <= nio ever
+    reads.
+
+    packed=False: payload = (gid << 8) | nio, returned separately.
+    packed=True: (gid << 6) | nio ORed into the last word's spare bits
+    (requires can_pack_payload(kmax, KW)); payload None."""
+    n = codes2.shape[0]
+    dev = codes2.device
+    m = n + 16 * (KW - 1)
+    cp = torch.cat([codes2, torch.full((16 * KW,), 4, dtype=codes2.dtype, device=dev)])
+    valid = cp < 4
+    w = torch.where(valid, cp.to(torch.int64) & 3, 0)
+    # pairs -> quads -> bytes -> 16-base words; w[i] packs 2^s bases from i
+    for s in range(4):
+        span = 1 << s
+        w = (w[: w.shape[0] - span] << (2 * span)) | w[span:]
+    w = w[:m]
+    fwd = torch.stack([w[16 * wi: 16 * wi + n] for wi in range(KW)])
+    del w
+    spare = _pack_spare(kmax, KW)
+    if spare:
+        fwd[-1] &= (_U32 >> spare) << spare
+    # nio from the next invalid position at or after i: a binary search
+    # in the sorted invalid positions (the padding guarantees one), the
+    # exact equivalent of the JAX package's reverse cummin.  On an H100,
+    # torch.cummin had taken 750 ms over the five sweeps of a 4 x 8 x 2 Mbp
+    # exp1 run (~256M elements), and the whole extraction with it 104 ms
+    # at 33.6M elements.
+    inv = torch.nonzero(~valid).squeeze(1)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    nio = torch.clamp(inv[torch.searchsorted(inv, idx)] - idx, max=kmax)
+    if packed:
+        if not can_pack_payload(kmax, KW):
+            raise ValueError(f"payload does not fit the spare bits of kmax={kmax}, KW={KW}")
+        fwd[-1] |= (gids2 << PACK_NIO_BITS) | nio
+        return fwd, None
+    return fwd, (gids2 << NIO_BITS) | nio
+
+
+def sort_words(words: torch.Tensor, payload: torch.Tensor | None = None):
+    """Sort int64 [KW, n] key words as unsigned KW*32-bit keys; the
+    payload (if any) follows its element.
+
+    Word pairs fold into signed int64 keys with the sign bit flipped
+    ((w0 - 2^31) * 2^32 + w1), and stable sorts run from the least
+    significant pair up (LSD).  Ties are identical elements in packed
+    mode; in unpacked mode the order within equal keys differs from
+    XLA's unstable sort, which no histogram depends on."""
+    KW = words.shape[0]
+    cols = list(words) + [torch.zeros_like(words[0])] * (KW % 2)
+    perm = None
+    for j in reversed(range(0, len(cols), 2)):
+        key = (cols[j] - (1 << 31)) * (1 << 32) + cols[j + 1]
+        if perm is not None:
+            key = key[perm]
+        order = torch.sort(key, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return words[:, perm], (None if payload is None else payload[perm])
+
+
+def _sweep_doubled(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
+                   KW: int, packed: bool):
+    """Doubled text (codes ++ revcomp) -> forward kmax-mer elements -> ONE
+    sorted array: (int64 [KW, n2] words, payload or None)."""
+    rc = torch.where(codes < 4, codes ^ 3, codes).flip(0)
+    codes2 = torch.cat([codes, rc])
+    gids2 = torch.cat([gids, gids.flip(0)])
+    fwd, payload = _extract_fwd_sweep(codes2, gids2, kmax, KW, packed=packed)
+    return sort_words(fwd, payload)
+
+
+def occurrence_histograms_sweep_packed(
+    packed,
+    n_members: int,
+    ks: Sequence[int],
+    cs: int = 5000,
+    cx: int = 10000,
+) -> Dict[int, List[int]]:
+    """{k: exp1 occurrence histogram (list of cx ints)} for every k in `ks`
+    over packed (codes, gids) tensors (see occurrence.pack_members); runs
+    on their device.
+
+    Runs the plan of plan_sweep.  Grids it sends to the per-k path (a
+    class with < 3 ks, or > 64 members) raise NotImplementedError."""
+    codes, gids = packed
+    classes, remaining = plan_sweep(ks, n_members)
+    if remaining:
+        raise NotImplementedError(
+            f"ks {remaining} with {n_members} members need the per-k fused "
+            "occurrence path, which is not yet ported (ROADMAP.md queue 1 "
+            "item 4); run them with `python -m khoice_tpu`"
+        )
+    out: Dict[int, List[int]] = {}
+    for kmax, KW, cks, pay_packed in classes:
+        skeys, spay = _sweep_doubled(codes, gids, kmax, KW, pay_packed)
+        raw = scan_multi_k(skeys, spay, cks, n_members, cs, pay_packed)
+        del skeys, spay
+        hists = ((raw[0] + raw[1]) // 2).cpu().tolist()
+        top = min(n_members, cx)
+        for i, k in enumerate(cks):
+            out[k] = hists[i][:top] + [0] * (cx - top)
+    return out
+
+
+def occurrence_histograms_sweep(
+    member_codes: Sequence[np.ndarray],
+    ks: Sequence[int],
+    device,
+    cs: int = 5000,
+    cx: int = 10000,
+) -> Dict[int, List[int]]:
+    """Sweep API over raw member code arrays (packs and uploads once)."""
+    return occurrence_histograms_sweep_packed(
+        pack_members(member_codes, device), len(member_codes), ks, cs=cs, cx=cx
+    )

@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Where the port's exp1 time goes on a CUDA device.
+
+    python tools/profile_torch_sweep.py [--db DATABASE_ROOT] [--out DIR]
+
+1. The shared-sort sweep at the bench shape (8 members x 2^21 random
+   bases, the 30-point grid, one packed KW=4 class), stage by stage with
+   CUDA events: pack + upload, doubled text + extraction, sort, the scan
+   kernel, the (d+p)//2 combine and copy back.
+2. With --db: `run --exp-type 1` through the CLI entry point under
+   torch.profiler; prints the wall time, the top device ops and the
+   device-busy share: the union of the trace's kernel, memcpy and memset
+   intervals over the wall (overlaps counted once).  --out also keeps
+   the chrome trace there.
+
+Prints the card's name and power limit first and one JSON line last.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+
+K_GRID = list(range(7, 31)) + list(range(34, 50, 3))
+
+
+def bench_stages(reps: int) -> dict:
+    from khoice_tpu_torch.engine.ksweep import _extract_fwd_sweep, plan_sweep, sort_words
+    from khoice_tpu_torch.engine.occurrence import pack_members
+    from khoice_tpu_torch.kernels.ksweep_scan import scan_multi_k
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    members = [rng.integers(0, 4, size=1 << 21, dtype=np.uint8) for _ in range(8)]
+    (kmax, KW, cks, packed), = plan_sweep(K_GRID, 8)[0]
+
+    def once():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        codes, gids = pack_members(members, dev)
+        ev[1].record()
+        rc = torch.where(codes < 4, codes ^ 3, codes).flip(0)
+        fwd, pay = _extract_fwd_sweep(torch.cat([codes, rc]),
+                                      torch.cat([gids, gids.flip(0)]), kmax, KW, packed)
+        ev[2].record()
+        words, pay = sort_words(fwd, pay)
+        ev[3].record()
+        raw = scan_multi_k(words, pay, cks, 8, 5000, packed)
+        ev[4].record()
+        ((raw[0] + raw[1]) // 2).cpu().tolist()
+        ev[5].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+    once()  # warm-up: build, allocator, cuda context
+    runs = [once() for _ in range(reps)]
+    names = ["pack_upload", "doubled_extract", "sort", "scan_kernel", "combine_d2h"]
+    out = {n: float(np.median([r[i] for r in runs])) for i, n in enumerate(names)}
+    out["total"] = sum(out[n] for n in names)
+    return out
+
+
+# chrome-trace categories of work on the device
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy_us(trace_events) -> dict:
+    """Device time of a chrome trace's events: `busy_us` is the union of
+    the kernel, memcpy and memset intervals (overlapping intervals, as
+    from concurrent streams, count once); `sum_us` adds their durations
+    as they are."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in trace_events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return {"busy_us": busy, "sum_us": sum(e - s for s, e in spans), "events": len(spans)}
+
+
+def exp1_profile(db: str, out_dir: str | None) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from khoice_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as work:
+        argv = ["run", "--exp-type", "1", "--database-root", db, "--work-root", work]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        trace = os.path.join(out_dir or work, "exp1_trace.json")
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(trace)
+        with open(trace) as fd:
+            dev = device_busy_us(json.load(fd)["traceEvents"])
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    return {"wall_s": wall, "device_busy_s": dev["busy_us"] / 1e6,
+            "device_busy_share": dev["busy_us"] / 1e6 / wall,
+            "device_event_sum_s": dev["sum_us"] / 1e6, "device_events": dev["events"]}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--db", default=None, help="database root for the exp1 profile")
+    ap.add_argument("--out", default=None, help="directory for the chrome trace")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    result = {"bench_stages_ms": bench_stages(args.reps)}
+    print("bench stages (ms, median):", json.dumps(result["bench_stages_ms"]))
+    if args.db:
+        result["exp1"] = exp1_profile(args.db, args.out)
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()
