@@ -2,8 +2,10 @@
 
 The package mirrors khoice_tpu's layout module for module
 (`engine/ksweep.py` <-> `khoice_tpu/engine/ksweep.py`, ...).  It imports
-torch and never jax; the jax-free host layers of khoice_tpu (FASTA I/O,
-reports, config, the stage driver, the oracle) are imported, not copied.
+torch and never jax, and nothing of khoice_tpu: the host layers it needs
+(config, the stage driver, logging, FASTA I/O with its native scanner,
+packing, reports, read simulation, confusion matrices, exp0) are copies,
+each naming the module it was copied from on its first line.
 Every TPU Pallas kernel on a ported path is a hand-written CUDA kernel
 under `csrc/`, built with nvcc at first use (kernels/_build.py).
 """

@@ -1,12 +1,13 @@
-"""Command-line interface: `python -m khoice_tpu_torch run --exp-type 1 ...`.
+"""Command-line interface: `python -m khoice_tpu_torch run --exp-type N ...`.
 
 The flags are khoice_tpu's (`python -m khoice_tpu run ...`) plus
-`--device` (default `cuda`).  The port runs exp1 on one device; every
-other experiment is served by `python -m khoice_tpu` until it is ported.
-Inputs follow the reference database layout
-(`database_root/dataset_{i}/*.fna.gz`); outputs land under --work-root
-with the reference's directory names, and a run whose outputs exist is
-skipped (runtime/driver.py) unless --force.
+`--device` (default `cuda`).  The port runs exp0 (host only) and exp1-4
+on one device; exp5-8 and the sharded sweep are served by
+`python -m khoice_tpu` until they are ported.  Inputs follow the
+reference database layout (`database_root/dataset_{i}/*.fna.gz`) and
+exp0's trial_{t}/ layout; outputs land under --work-root with the
+reference's directory names, and a stage whose outputs exist is skipped
+(runtime/driver.py) unless --force.
 """
 
 from __future__ import annotations
@@ -17,13 +18,14 @@ import sys
 
 import torch
 
-from khoice_tpu.config import KhoiceConfig
-from khoice_tpu.runtime.driver import Driver, Stage
-from khoice_tpu.utils.logging import get_logger
+from .config import KhoiceConfig
+from .io.fasta import read_fasta
+from .runtime.driver import Driver, Stage
+from .utils.logging import get_logger
 
 log = get_logger("khoice.cli")
 
-PORTED_EXP_TYPES = (1,)
+PORTED_EXP_TYPES = (0, 1, 2, 3, 4)
 
 
 def _device(name: str) -> torch.device:
@@ -36,6 +38,40 @@ def _device(name: str) -> torch.device:
     return device
 
 
+def _trial_root(cfg: KhoiceConfig, root: str) -> str:
+    return os.path.join(root, f"trial_{cfg.curr_trial}")
+
+
+def _ensure_exp0(cfg: KhoiceConfig, db, root: str) -> dict:
+    """Run exp0 for the current trial unless its outputs already exist."""
+    from .pipelines.exp0 import run_exp0
+
+    # key resume on exp0's LAST output (the trial summary): a run that died
+    # mid-exp0 leaves earlier directories behind, and loading from those
+    # partial outputs fails on missing read files
+    marker = os.path.join(
+        root, "trial_summaries", f"trial_{cfg.curr_trial}_summary.txt"
+    )
+    if os.path.isfile(marker):
+        return _load_exp0(cfg, db, root)
+    return run_exp0(db, cfg, cfg.curr_trial, root)
+
+
+def _load_exp0(cfg: KhoiceConfig, db, root: str) -> dict:
+    """Re-load a previously produced exp0 trial layout."""
+    troot = _trial_root(cfg, root)
+    pivots, nonpivots, reads = {}, {}, {}
+    for num in sorted(db):
+        with open(os.path.join(troot, f"exp0_pivot_genomes/dataset_{num}/pivot_name.txt")) as fd:
+            pivots[num] = fd.read().strip()
+        with open(os.path.join(troot, f"exp0_nonpivot_genomes/dataset_{num}/nonpivot_names.txt")) as fd:
+            nonpivots[num] = [x.strip() for x in fd if x.strip()]
+        for rt in ("illumina", "ont"):
+            path = os.path.join(troot, f"exp0_pivot_reads/dataset_{num}/{rt}/pivot_{num}_subset.fa")
+            reads[(num, rt)] = [r.seq for r in read_fasta(path)]
+    return {"pivots": pivots, "nonpivots": nonpivots, "reads": reads}
+
+
 def cmd_run(args) -> int:
     cfg = KhoiceConfig.from_yaml(args.config) if args.config else KhoiceConfig()
     if args.work_root:
@@ -46,6 +82,12 @@ def cmd_run(args) -> int:
         cfg.exp_type = args.exp_type
     if args.k_values:
         cfg.k_values = [int(x) for x in args.k_values.split(",")]
+    if args.num_datasets:
+        cfg.num_datasets = args.num_datasets
+    if args.kmers_per_dataset:
+        cfg.kmers_per_dataset = args.kmers_per_dataset
+    if args.trials:
+        cfg.num_trials = args.trials
     if args.device_budget_gb:
         cfg.device_budget_gb = args.device_budget_gb
     if cfg.exp_type not in PORTED_EXP_TYPES:
@@ -58,40 +100,118 @@ def cmd_run(args) -> int:
             "--mesh-shards > 1 (the sharded sweep) is not ported to "
             "khoice_tpu_torch yet; it is served by `python -m khoice_tpu run`"
         )
-    if args.trials and args.trials > 1:
-        log.warning("--trials=%d ignored for exp_type=1 (exp1 has no trial axis)",
-                    args.trials)
-    for flag, value in (("--num-datasets", args.num_datasets),
-                        ("--kmers-per-dataset", args.kmers_per_dataset)):
-        if value:
-            log.warning("%s=%d ignored for exp_type=1 (it reads every dataset "
-                        "and every k-mer)", flag, value)
-    device = _device(args.device)
+    if cfg.exp_type == 1:
+        for flag, value in (("--num-datasets", args.num_datasets),
+                            ("--kmers-per-dataset", args.kmers_per_dataset)):
+            if value:
+                log.warning("%s=%d ignored for exp_type=1 (it reads every dataset "
+                            "and every k-mer)", flag, value)
+    # exp0 is host only; every other ported experiment runs on the device
+    device = _device(args.device) if cfg.exp_type != 0 else None
 
-    from khoice_tpu.pipelines.exp0 import load_database_dir
-
-    from .pipelines.exp1 import run_exp1
+    from .pipelines.exp0 import load_database_dir
 
     db = load_database_dir(cfg.database_root)
     if not db:
         raise SystemExit(f"no dataset_N directories under {cfg.database_root}")
-    log.info("exp_type=1 datasets=%d k-grid=%d points device=%s",
-             len(db), len(cfg.k_values), device)
-    groups = {num: [db[num][name] for name in sorted(db[num])] for num in db}
-    Driver(cfg.work_root, force=args.force).run([Stage(
-        name="exp1",
-        outputs=[
-            os.path.join(cfg.work_root, "step_5/within_datasets_analysis.csv"),
-            os.path.join(cfg.work_root, "step_9/across_datasets_analysis.csv"),
-        ],
-        fn=lambda: run_exp1(
-            groups, cfg.k_values, cfg.work_root, device,
-            union_cs=cfg.union_cs, hist_cx=cfg.hist_cx,
-            device_budget_bytes=(
-                int(cfg.device_budget_gb * 2**30) if cfg.device_budget_gb else None
+
+    # Multi-trial fan-out (reference NUM_TRIALS, prepare_data.smk:42-117):
+    # exp0's outputs are trial-keyed already; exp2/3/4 write per-trial
+    # subroots so trials don't clobber each other.
+    if args.trials and args.trials > 1:
+        if cfg.exp_type == 1:
+            log.warning(
+                "--trials=%d ignored for exp_type=1 (exp1 is deterministic "
+                "over genomes; the reference's trial axis only exists for "
+                "pivot/read experiments)", args.trials,
+            )
+        else:
+            base_root = cfg.work_root
+            rc = 0
+            for t in range(1, args.trials + 1):
+                cfg.curr_trial = t
+                cfg.work_root = (
+                    base_root if cfg.exp_type == 0
+                    else os.path.join(base_root, f"trial_{t}_results")
+                )
+                log.info("=== trial %d/%d ===", t, args.trials)
+                rc = max(rc, _run_one(cfg, args, db, device, exp0_root=base_root))
+            cfg.work_root = base_root
+            return rc
+    return _run_one(cfg, args, db, device, exp0_root=cfg.work_root)
+
+
+def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
+    driver = Driver(cfg.work_root, force=args.force)
+    et = cfg.exp_type
+    budget = int(cfg.device_budget_gb * 2**30) if cfg.device_budget_gb else None
+    log.info("exp_type=%d datasets=%d k-grid=%d points device=%s",
+             et, len(db), len(cfg.k_values), device)
+
+    def genomes_of(num):
+        return [db[num][name] for name in sorted(db[num])]
+
+    if et == 0:
+        driver.run([Stage(
+            name="exp0",
+            outputs=[os.path.join(exp0_root, f"trial_summaries/trial_{cfg.curr_trial}_summary.txt")],
+            fn=lambda: _ensure_exp0(cfg, db, exp0_root),
+        )])
+    elif et == 1:
+        from .pipelines.exp1 import run_exp1
+
+        groups = {num: genomes_of(num) for num in db}
+        driver.run([Stage(
+            name="exp1",
+            outputs=[
+                os.path.join(cfg.work_root, "step_5/within_datasets_analysis.csv"),
+                os.path.join(cfg.work_root, "step_9/across_datasets_analysis.csv"),
+            ],
+            fn=lambda: run_exp1(
+                groups, cfg.k_values, cfg.work_root, device,
+                union_cs=cfg.union_cs, hist_cx=cfg.hist_cx, device_budget_bytes=budget,
             ),
-        ),
-    )])
+        )])
+    else:
+        exp0 = _ensure_exp0(cfg, db, exp0_root)
+        pivots = {num: db[num][exp0["pivots"][num]] for num in db}
+        nonpivot_genomes = {
+            num: [db[num][n] for n in exp0["nonpivots"][num]] for num in db
+        }
+        if et == 2:
+            from .pipelines.exp2 import run_exp2
+
+            driver.run([Stage(
+                name="exp2",
+                outputs=[os.path.join(cfg.work_root, "within_dataset_analysis_type_2/within_dataset_analysis.csv")],
+                fn=lambda: run_exp2(pivots, nonpivot_genomes, cfg.k_values, cfg.work_root,
+                                    device, union_cs=cfg.union_cs, hist_cx=cfg.hist_cx,
+                                    device_budget_bytes=budget),
+            )])
+        elif et == 3:
+            from .pipelines.exp3 import run_exp3, simulate_exp3_reads
+
+            reads = simulate_exp3_reads(pivots, cfg.kmers_per_dataset, seed=cfg.read_sim_seed)
+            driver.run([Stage(
+                name="exp3",
+                outputs=[os.path.join(cfg.work_root, "final_analysis_type3/final_analysis_type3.csv")],
+                fn=lambda: run_exp3(reads, nonpivot_genomes, cfg.k_values, cfg.work_root,
+                                    device, union_cs=cfg.union_cs,
+                                    device_budget_bytes=budget),
+            )])
+        else:
+            from .pipelines.exp4 import run_exp4
+
+            rest = dict(nonpivot_genomes)
+            if not cfg.out_pivot:  # in-pivot adds the pivot to its own group
+                rest = {num: rest[num] + [pivots[num]] for num in rest}
+            driver.run([Stage(
+                name="exp4",
+                outputs=[os.path.join(cfg.work_root, "accuracies_type_4/accuracy_values.csv")],
+                fn=lambda: run_exp4(pivots, rest, cfg.k_values, cfg.work_root, device,
+                                    count_cs=cfg.count_cs, union_cs=cfg.union_cs,
+                                    device_budget_bytes=budget),
+            )])
     return 0
 
 
@@ -111,15 +231,17 @@ def main(argv=None) -> int:
     run_p.add_argument("--num-datasets", type=int, default=None,
                        help="ignored by exp1, which reads every dataset")
     run_p.add_argument("--kmers-per-dataset", type=int, default=None,
-                       help="size of exp3's simulated reads per dataset (ignored by exp1)")
+                       help="31-mer budget of the read sets exp0 and exp3 simulate "
+                            "(ignored by exp1)")
     run_p.add_argument("--mesh-shards", type=int, default=None,
                        help="devices along the k-mer key-range mesh axis (not ported: 1 only)")
     run_p.add_argument("--device-budget-gb", type=float, default=None,
-                       help="device memory budget for the exp1 sweep (default: "
-                            "85%% of the device; groups beyond it raise, the "
+                       help="device memory budget of the exp1-4 sweeps (default: "
+                            "85%% of the device; a sweep beyond it raises, the "
                             "streaming sweep is not ported)")
     run_p.add_argument("--trials", type=int, default=None,
-                       help="fan the experiment over trials 1..N (ignored by exp1)")
+                       help="fan exp0/2/3/4 over trials 1..N (reference NUM_TRIALS; "
+                            "ignored by exp1)")
     run_p.add_argument("--force", action="store_true", help="ignore satisfied outputs")
     run_p.add_argument("--device", default="cuda",
                        help="torch device to run on (default cuda; cpu runs the "

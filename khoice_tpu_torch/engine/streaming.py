@@ -1,9 +1,10 @@
-"""Device memory budget of the exp1 sweep (port of the budget part of
+"""Device memory budget of the shared-sort sweeps, exp1's and the
+classification experiments' (port of the budget part of
 khoice_tpu/engine/streaming.py).
 
 The JAX package dispatches a group whose in-core sweep would not fit the
 device to a bounded-memory streaming sweep.  That sweep is not ported
-yet (ROADMAP.md queue 1 item 5): here a group over budget raises.
+yet (ROADMAP.md queue 1 item 5): here a sweep over budget raises.
 """
 
 from __future__ import annotations

@@ -32,10 +32,12 @@ NVCC_FLAGS = [
 _SIGNATURES = {
     "ksweep_scan_tile_elems": (ctypes.c_int, []),
     "ksweep_scan_max_ks": (ctypes.c_int, []),
+    "ksweep_scan_hist_bytes_max": (ctypes.c_int, []),
     "ksweep_scan_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
     ]),
 }

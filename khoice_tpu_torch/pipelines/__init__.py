@@ -1,1 +1,1 @@
-"""Experiment drivers of the port (exp1 so far)."""
+"""Experiment drivers of the port: exp0 (host only) and exp1-4."""

@@ -17,13 +17,12 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from khoice_tpu.io.packing import encode_records
-from khoice_tpu.reports.csvio import read_hist_txt, write_csv_rows, write_hist_txt
-from khoice_tpu.reports.metrics import append_group_normalization, summarize_histogram_type1
-from khoice_tpu.utils.logging import get_logger
-
 from ..engine import streaming
 from ..engine.ksweep import occurrence_histograms_sweep
+from ..io.packing import encode_records
+from ..reports.csvio import read_hist_txt, write_csv_rows, write_hist_txt
+from ..reports.metrics import append_group_normalization, summarize_histogram_type1
+from ..utils.logging import get_logger
 
 STEP5_HEADER = (
     "group_num,k,percent_1_occ,percent_25_or_less,percent_25_to_75,"

@@ -1,0 +1,100 @@
+"""Experiment 3: read k-mer containment across species databases (port
+of khoice_tpu/pipelines/exp3.py, its shared-sort path).
+
+Reads are simulated from each out-pivot genome (Illumina 2x / ONT),
+subset to the k-mer budget, and for every (read_type, pivot, k, dataset)
+the fraction of the read set's distinct k-mers found in the dataset's
+group union is reported:
+
+    intersection_percent = |distinct(reads) ∩ group| / |distinct(reads)|
+
+rounded to 4 (reference exp_type_3.smk:281-320).  The query read sets and
+the group unions share ONE doubled-text sort for the whole k grid
+(engine/ksweep_classify.py); the JAX package's per-k table ops are not
+ported, so grids the plan cannot serve raise NotImplementedError.  Row
+order: read_type outer, then pivot, k, dataset (exp_type_3.smk:103-113).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from ..engine.ksweep_classify import containment_counts_sweep
+from ..io.packing import encode_records
+from ..reports.csvio import write_csv_rows
+from ..sim.reads import sim_illumina, sim_ont, subset_reads_kmers
+
+HEADER = "read_type,pivot_num,k,dataset_num,intersection_percent\n"
+
+
+def simulate_exp3_reads(
+    pivots: Dict[int, List[str]],
+    num_kmers: int,
+    seed: int = 0,
+) -> Dict[tuple, List[str]]:
+    """{(read_type, num): [reads]} — Illumina at 2x fold (exp_type_3.smk:129)."""
+    out = {}
+    for num in sorted(pivots):
+        for ridx, read_type in enumerate(("illumina", "ont")):
+            rng = np.random.default_rng([seed, 3, num, ridx])
+            raw = (
+                sim_illumina(pivots[num], rng, coverage=2.0)
+                if read_type == "illumina"
+                else sim_ont(pivots[num], rng)
+            )
+            out[(read_type, num)] = subset_reads_kmers(raw, rng, num_kmers, 31)
+    return out
+
+
+def run_exp3(
+    reads: Dict[tuple, List[str]],
+    rest_of_set: Dict[int, List[List[str]]],
+    k_values: Sequence[int],
+    out_dir: str,
+    device,
+    union_cs: int = 5000,
+    device_budget_bytes: int | None = None,
+) -> str:
+    """reads: {(read_type, pivot_num): [read strings]} (see
+    simulate_exp3_reads); rest_of_set excludes each pivot (out-pivot).
+    The sweep runs on `device`, within `device_budget_bytes` (default ~85%
+    of the device).  Returns the CSV path."""
+    nums = sorted(rest_of_set)
+    read_types = sorted({rt for rt, _ in reads}, key=lambda r: ("illumina", "ont").index(r))
+
+    # queries (read sets, bits 0..nq-1) and group unions (bits nq..nq+D-1)
+    # share ONE doubled-text sort for the whole k grid: |distinct(reads)|
+    # and |reads ∩ group| are run counts in the same scan
+    qkeys = [(rt, num) for rt in read_types for num in nums]
+    member_codes = [encode_records(reads[q]) for q in qkeys] + [
+        encode_records([s for g in rest_of_set[num] for s in g]) for num in nums
+    ]
+    counts, _ = containment_counts_sweep(
+        member_codes, len(qkeys), len(nums), k_values, cs=union_cs, device=device,
+        device_budget_bytes=device_budget_bytes,
+    )
+
+    results = {}
+    for k, cnt in counts.items():
+        for qi, (read_type, pivot_num) in enumerate(qkeys):
+            n_pivot = int(cnt[qi, 0])
+            assert n_pivot > 0, "empty pivot read k-mer set"
+            for gi, num in enumerate(nums):
+                results[(read_type, pivot_num, k, num)] = round(
+                    int(cnt[qi, 1 + gi]) / n_pivot, 4
+                )
+
+    rows = [
+        [read_type, str(pivot_num), str(k), str(num), results[(read_type, pivot_num, k, num)]]
+        for read_type in read_types
+        for pivot_num in nums
+        for k in k_values
+        for num in nums
+    ]
+
+    csv = os.path.join(out_dir, "final_analysis_type3/final_analysis_type3.csv")
+    write_csv_rows(csv, HEADER, rows)
+    return csv

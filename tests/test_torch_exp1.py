@@ -36,12 +36,12 @@ def test_exp1_csvs_equal_jax_and_oracle(rng, tmp_path, ks):
         assert _read(tmp_path / "port" / rel) == _read(tmp_path / "jax" / rel)
 
 
-def _write_db(root, rng, n_datasets=2, n_genomes=2):
+def _write_db(root, rng, n_datasets=2, n_genomes=2, glen=400):
     for d in range(1, n_datasets + 1):
         os.makedirs(os.path.join(root, f"dataset_{d}"))
         for g in range(1, n_genomes + 1):
             with open(os.path.join(root, f"dataset_{d}", f"genome_{g}.fna"), "w") as fd:
-                fd.write(f">d{d}g{g}\n{random_dna(rng, 400, n_prob=0.01)}\n"
+                fd.write(f">d{d}g{g}\n{random_dna(rng, glen, n_prob=0.01)}\n"
                          f">d{d}g{g}_p\n{random_dna(rng, 90)}\n")
 
 
@@ -64,8 +64,8 @@ def test_cli_exp1_on_cpu_and_unported_exp_types(rng, tmp_path):
     assert len(step5.strip().split("\n")) == 1 + 2 * 4
     assert len(step9.strip().split("\n")) == 1 + 4
 
-    proc = _cli("--exp-type", "2", "--device", "cpu", "--database-root", str(db),
-                "--work-root", str(tmp_path / "w2"))
+    proc = _cli("--exp-type", "6", "--device", "cpu", "--database-root", str(db),
+                "--work-root", str(tmp_path / "w6"))
     assert proc.returncode != 0
     assert "python -m khoice_tpu" in proc.stderr and "not ported" in proc.stderr
 
@@ -87,21 +87,33 @@ def test_cli_without_cuda_fails_loudly(rng, tmp_path):
 
 
 def test_port_never_imports_jax(rng, tmp_path):
+    """Walking every module of the port and running exp 0/1/2/3/4 on the
+    CPU imports neither jax nor anything of the JAX package."""
     db = tmp_path / "db"
-    _write_db(str(db), rng)
+    _write_db(str(db), rng, glen=3000)  # long enough for exp0's ONT reads
     code = (
         "import sys, importlib, pkgutil\n"
         "import khoice_tpu_torch, khoice_tpu_torch.cli\n"
         "for m in pkgutil.walk_packages(khoice_tpu_torch.__path__, 'khoice_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from khoice_tpu_torch.cli import main\n"
-        f"main(['run', '--exp-type', '1', '--device', 'cpu', '--database-root', {str(db)!r},\n"
-        f"      '--work-root', {str(tmp_path / 'work')!r}, '--k-values', '7,9,12'])\n"
+        "for t in ('0', '1', '2', '3', '4'):\n"
+        f"    assert main(['run', '--exp-type', t, '--device', 'cpu', '--database-root', {str(db)!r},\n"
+        f"                 '--work-root', {str(tmp_path / 'work')!r}, '--k-values', '7,9,12',\n"
+        "                 '--kmers-per-dataset', '1000']) == 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'khoice_tpu' or m.startswith('khoice_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('no jax')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "no jax" in proc.stdout
-    assert (tmp_path / "work/step_9/across_datasets_analysis.csv").exists()
+    work = tmp_path / "work"
+    assert (work / "step_9/across_datasets_analysis.csv").exists()
+    assert (work / "trial_summaries/trial_1_summary.txt").exists()
+    assert (work / "across_dataset_analysis_type_2/across_dataset_analysis.csv").exists()
+    assert (work / "final_analysis_type3/final_analysis_type3.csv").exists()
+    assert (work / "accuracies_type_4/accuracy_values.csv").exists()

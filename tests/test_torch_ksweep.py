@@ -146,7 +146,7 @@ def test_scan_on_jax_sorted_array(nprng, case, ks):
                                                 packed=packed, raw=True))
         words = interop.words_from_numpy([np.asarray(w) for w in sj], "cpu")
         pay = interop.payload_from_numpy(None if pj is None else np.asarray(pj), "cpu")
-        before = ksweep_scan.launches
+        before = dict(ksweep_scan.launches)
         got = ksweep_scan.scan_multi_k(words, pay, cks, g, 5000, packed)
         assert ksweep_scan.launches == before  # the CPU path launches nothing
         assert got.dtype == torch.int64 and got.shape == (2, len(cks), g)

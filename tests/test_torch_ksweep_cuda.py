@@ -68,10 +68,10 @@ def test_kernel_equals_plain_scan(cuda, g, n, poly_a, ks):
     codes, gids = pack_members(_members(rng, g, n, poly_a), cuda)
     for kmax, KW, cks, packed in classes:
         words, pay = _sweep_doubled(codes, gids, kmax, KW, packed)
-        before = ksweep_scan.launches
+        before = ksweep_scan.launches["occ"]
         got = ksweep_scan.scan_multi_k(words, pay, cks, g, 5000, packed)
         torch.cuda.synchronize()
-        assert ksweep_scan.launches > before
+        assert ksweep_scan.launches["occ"] > before
         want = scan_multi_k_reference(words, pay, cks, g, 5000, packed)
         assert torch.equal(got, want)
         # cs below the member count caps every bin at cs

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the port's exp1 time goes on a CUDA device.
+"""Where the port's time goes on a CUDA device.
 
-    python tools/profile_torch_sweep.py [--db DATABASE_ROOT] [--out DIR]
+    python tools/profile_torch_sweep.py [--db DATABASE_ROOT] [--exp-types 1,2,3,4]
+                                        [--kmers-per-dataset N] [--out DIR]
 
 1. The shared-sort sweep at the bench shape (8 members x 2^21 random
    bases, the 30-point grid, one packed KW=4 class), stage by stage with
    CUDA events: pack + upload, doubled text + extraction, sort, the scan
-   kernel, the (d+p)//2 combine and copy back.
-2. With --db: `run --exp-type 1` through the CLI entry point under
-   torch.profiler; prints the wall time, the top device ops and the
+   kernel, the (d+p)//2 combine and copy back; beside them one
+   `torch.sort` of the first word pair's folded int64 keys, the library
+   call the sort row of PERF.md is held against.
+2. With --db: each of --exp-types through the CLI entry point under
+   torch.profiler (exp 2/3/4 share one work root, and exp0 runs there
+   first, unprofiled); prints the wall time, the top device ops and the
    device-busy share: the union of the trace's kernel, memcpy and memset
    intervals over the wall (overlaps counted once).  --out also keeps
-   the chrome trace there.
+   the chrome traces there.
 
 Prints the card's name and power limit first and one JSON line last.
 """
@@ -65,6 +69,21 @@ def bench_stages(reps: int) -> dict:
     names = ["pack_upload", "doubled_extract", "sort", "scan_kernel", "combine_d2h"]
     out = {n: float(np.median([r[i] for r in runs])) for i, n in enumerate(names)}
     out["total"] = sum(out[n] for n in names)
+
+    codes, gids = pack_members(members, dev)
+    rc = torch.where(codes < 4, codes ^ 3, codes).flip(0)
+    fwd, _ = _extract_fwd_sweep(torch.cat([codes, rc]), torch.cat([gids, gids.flip(0)]),
+                                kmax, KW, packed)
+    key = (fwd[0] - (1 << 31)) * (1 << 32) + fwd[1]
+    times = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        torch.sort(key, stable=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    out["library_torch_sort_one_pair"] = float(np.median(times[1:]))
     return out
 
 
@@ -88,24 +107,25 @@ def device_busy_us(trace_events) -> dict:
     return {"busy_us": busy, "sum_us": sum(e - s for s, e in spans), "events": len(spans)}
 
 
-def exp1_profile(db: str, out_dir: str | None) -> dict:
+def exp_profile(argv: list, label: str, out_dir: str | None) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from khoice_tpu_torch import cli
 
-    with tempfile.TemporaryDirectory() as work:
-        argv = ["run", "--exp-type", "1", "--database-root", db, "--work-root", work]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            cli.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        trace = os.path.join(out_dir or work, "exp1_trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise SystemExit(f"{label} failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(out_dir or tmp, f"{label}_trace.json")
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(trace)
         with open(trace) as fd:
             dev = device_busy_us(json.load(fd)["traceEvents"])
+    print(f"--- {label}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     return {"wall_s": wall, "device_busy_s": dev["busy_us"] / 1e6,
             "device_busy_share": dev["busy_us"] / 1e6 / wall,
@@ -114,8 +134,11 @@ def exp1_profile(db: str, out_dir: str | None) -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--db", default=None, help="database root for the exp1 profile")
-    ap.add_argument("--out", default=None, help="directory for the chrome trace")
+    ap.add_argument("--db", default=None, help="database root for the experiment profiles")
+    ap.add_argument("--exp-types", default="1", help="comma-separated experiments to profile")
+    ap.add_argument("--kmers-per-dataset", default="2000000",
+                    help="31-mer budget of exp0's and exp3's simulated read sets")
+    ap.add_argument("--out", default=None, help="directory for the chrome traces")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -126,7 +149,19 @@ def main():
     result = {"bench_stages_ms": bench_stages(args.reps)}
     print("bench stages (ms, median):", json.dumps(result["bench_stages_ms"]))
     if args.db:
-        result["exp1"] = exp1_profile(args.db, args.out)
+        with tempfile.TemporaryDirectory() as work:
+            common = ["--database-root", args.db, "--work-root", work,
+                      "--kmers-per-dataset", args.kmers_per_dataset]
+            exp_types = [int(t) for t in args.exp_types.split(",")]
+            if any(t in (2, 3, 4) for t in exp_types):
+                t0 = time.perf_counter()
+                from khoice_tpu_torch import cli
+
+                cli.main(["run", "--exp-type", "0", *common])
+                result["exp0_wall_s"] = time.perf_counter() - t0
+            for t in exp_types:
+                result[f"exp{t}"] = exp_profile(["run", "--exp-type", str(t), *common],
+                                                f"exp{t}", args.out)
     print(json.dumps(result))
 
 
