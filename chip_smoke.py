@@ -5,29 +5,46 @@
 
 Phases (any failure raises, so the exit code is non-zero):
   1. device: require CUDA; print the card's name and power limit.
-  2. build: compile khoice_tpu_torch/csrc/*.cu with nvcc (sm_90a); print
-     ptxas's registers and spills per kernel.
-  3. kernels vs plain: the scan kernel in each mode and its plain PyTorch
-     version on the same sorted array on the card, exactly equal, timed in
-     turns (plain, kernel, kernel, plain): occ at exp1's shapes (8 x
-     2^21-base members on the 30-point grid; 64 members; an unpacked
-     class), and the classification modes at the same bench shape
-     (pivot_rest 1 + 7 members, multi_pivot D = 4, containment 8 queries
-     + 4 groups, buckets D = 4 with cap 255 and pivot counts above 511)
-     plus a 63-member containment.
-  4. main paths through the port's CLI entry point on a generated 4
-     datasets x 8 genomes x 2 Mbp database: `run --exp-type 1`, then
-     `--exp-type 2`, `3` and `4` in one work root (exp0 runs once).  Every
-     launch counter is set to 0 just before each run and read just after;
-     the kernel modes a run uses must have launched, and its CSVs must
-     have the expected lines.  Every scan call of these runs is held
-     against the plain version on the same arrays, exactly (after the
-     call's timed span; the plain version launches nothing).  Wall, peak
-     device memory and each scan call's time (CUDA events) are printed.
-  5. small worlds: the step_4/step_8 histograms that `run_exp1` writes on
-     the card, and the four classification sweeps run on the card, equal
-     a dict-based canonical k-mer counter written here (the CSV bytes are
-     held against the JAX package and its oracle by the CPU tests).
+  2. build: compile khoice_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
+     process per source; print ptxas's registers and spills per kernel.
+  3. kernels vs plain: each kernel and its plain PyTorch version on the
+     same inputs on the card, exactly equal, timed in turns (plain,
+     kernel, kernel, plain):
+     - the scan kernel in each mode on a sorted doubled text: occ at
+       exp1's shapes (8 x 2^21-base members on the 30-point grid; 64
+       members; an unpacked class), the classification modes at the same
+       bench shape (pivot_rest 1 + 7 members, multi_pivot D = 4,
+       containment 8 queries + 4 groups, buckets D = 4 with cap 255 and
+       pivot counts above 511) plus a 63-member containment;
+     - the extraction kernel (A) on 2^24 codes with N runs, k in
+       {7, 15, 16, 31, 32, 49, 63}, keys and the gid-packed form;
+     - the occurrence-histogram kernel, packed (B), on the sorted words of
+       96 members x 2^20 at k = 31 and 49 (one member with a poly-A
+       tract, so runs cross blocks), and unpacked (C) on 300 members x
+       2^16 at k = 31.
+  4. main paths through the port's CLI entry point:
+     a. on a generated 4 datasets x 8 genomes x 2 Mbp database:
+        `run --exp-type 1`, then 2, 3 and 4 in one work root (exp0 runs
+        once), then exp 3 and 4 again with `--force --k-values 21,31`
+        (the per-k table ops);
+     b. on a generated 2 datasets x 96 genomes x 1 Mbp database (groups
+        over the sweep's 64-member mask): `run --exp-type 1` on the full
+        grid and `run --exp-type 2` in its own work root.
+     Every launch counter is set to 0 just before each run and read just
+     after; the kernels a run uses must have launched, and its CSVs must
+     have the expected lines.  Each kernel call is timed (CUDA events) and
+     held against its plain version on the same inputs, exactly, after
+     its timed span: every scan call of 4a, and in 4b every extraction and
+     histogram call at the ks where a word count changes (HOLD_KS); 4b's
+     scan calls (388M elements) are timed only.  Wall, peak device
+     memory and each kernel's calls are printed.
+  5. small worlds, against a dict-based canonical k-mer counter written
+     here: the step_4/step_8 histograms that `run_exp1` writes on the card
+     for 2 groups x 3 genomes, then for a group of 70 genomes and one of
+     300 (per-k, packed and unpacked) on a 2-k and a 7-k grid; the four
+     classification sweeps; and count_codes, union, intersect_sum,
+     subtract and histogram at k in {11, 31, 45}.  (The CSV bytes are
+     held against the JAX package and its oracle by the CPU tests.)
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -46,10 +63,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K_GRID = list(range(7, 31)) + list(range(34, 50, 3))  # the reference grid
-DB_MBP = 2.0
+HOLD_KS = (12, 13, 15, 16, 28, 29, 30, 34, 43, 46)  # every change of a word count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
-REPLACES = "khoice_tpu/kernels/ksweep_scan_pallas.py"
-SOURCE = "khoice_tpu_torch/csrc/ksweep_scan.cu"
+SCAN_REPLACES = "khoice_tpu/kernels/ksweep_scan_pallas.py"
+SCAN_SOURCE = "khoice_tpu_torch/csrc/ksweep_scan.cu"
 MODES = ("pivot_rest", "multi_pivot", "containment", "buckets")
 
 
@@ -82,18 +99,23 @@ def build():
     print(f"built {os.path.relpath(_build.library_path(), ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
     # ptxas: "Compiling entry function '<mangled>'" ... "N bytes spill stores" ...
-    # "Used R registers"; template arguments read from the mangled name
-    name, spill = None, ""
+    # "Used R registers"; one line per kernel: its instantiations' registers
+    name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
-        m = re.search(r"entry function '.*?(tile_summaries|tile_carries|count_runs)I((?:L[ib]\d+E)+)E", line)
+        m = re.search(r"entry function '.*?((?:occ_)?(?:tile_summaries|tile_carries|count_runs)"
+                      r"|extract_kernel)", line)
         if m:
-            name = f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2)))}>"
-        elif name and "spill" in line:
-            spill = line.strip()
+            name = m.group(1)
+        elif name and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif name and "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            print(f"  ptxas: {name}: {regs} registers; {spill}")
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            kernels.setdefault(name, []).append((regs, spill))
             name = None
+    for name, inst in kernels.items():
+        regs = [r for r, _ in inst]
+        print(f"  ptxas: {name}: {len(inst)} instantiations, {min(regs)}-{max(regs)} "
+              f"registers, {sum(s for _, s in inst)} bytes spilled")
 
 
 def random_members(rng, n_members, length):
@@ -118,14 +140,52 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(words, pay, out_numel):
-    """Least time for the scan's bytes: each input read once, the output
-    written once, at the card's memory rate."""
-    nbytes = words.numel() * 8 + (0 if pay is None else pay.numel() * 8) + out_numel * 8
-    return nbytes / HBM_BYTES_PER_S * 1e3
+def io_bound_ms(args, out):
+    """Least time for a call's bytes: each input tensor read once, each
+    output tensor written once (int64 words at 8 B, as the port holds
+    them), at the card's memory rate."""
+    def nbytes(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if isinstance(x, (tuple, list)):
+            return sum(nbytes(y) for y in x)
+        return 0
+    return (nbytes(args) + nbytes(out)) / HBM_BYTES_PER_S * 1e3
 
 
-def kernel_vs_plain(label, members, ks, mode="occ", mode_params=None, plain_reps=2):
+def max_err(got, want):
+    """Largest absolute difference of two results (tensors or tuples)."""
+    if isinstance(got, tuple):
+        return max(max_err(g, w) for g, w in zip(got, want))
+    if got.shape != want.shape:
+        raise AssertionError(f"shapes differ: {tuple(got.shape)} != {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max().item())
+
+
+def compare(label, kern, plain, args, plain_reps=2, kern_reps=10):
+    """Kernel vs plain on the same inputs: exactly equal, timed in turns."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if err:
+        raise AssertionError(f"{label}: kernel != plain (max_abs_err {err})")
+    first = want[0] if isinstance(want, tuple) else want
+    if not first.any():
+        raise AssertionError(f"{label}: empty result, nothing was compared")
+    p1 = time_ms(plain, plain_reps)
+    k1 = time_ms(kern, kern_reps)
+    k2 = time_ms(kern, kern_reps)
+    p2 = time_ms(plain, plain_reps)
+    bound = io_bound_ms(args, got)
+    print(f"{label}: equal (max_abs_err {err}); kernel {k1:.3f} / {k2:.3f} ms, "
+          f"plain {p1:.3f} / {p2:.3f} ms, bound {bound:.3f} ms (bytes)", flush=True)
+    return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": bound}
+
+
+def scan_vs_plain(label, members, ks, mode="occ", mode_params=None, plain_reps=2):
     from khoice_tpu_torch.engine.ksweep import _sweep_doubled, plan_sweep
     from khoice_tpu_torch.engine.occurrence import pack_members
     from khoice_tpu_torch.kernels import ksweep_scan
@@ -140,142 +200,229 @@ def kernel_vs_plain(label, members, ks, mode="occ", mode_params=None, plain_reps
     words, pay = _sweep_doubled(codes, gids, kmax, KW, packed)
     del codes, gids
     torch.cuda.synchronize()
-
     if mode == "occ":
-        def kern():
-            return ksweep_scan.scan_multi_k(words, pay, cks, g, 5000, packed)
-
-        def plain():
-            return ksweep_scan.scan_multi_k_reference(words, pay, cks, g, 5000, packed)
+        args = (words, pay, cks, g, 5000, packed)
+        kern, plain = ksweep_scan.scan_multi_k, ksweep_scan.scan_multi_k_reference
     else:
-        def kern():
-            return ksweep_scan.scan_classify(words, pay, cks, mode, mode_params, packed)
+        args = (words, pay, cks, mode, mode_params, packed)
+        kern, plain = ksweep_scan.scan_classify, ksweep_scan.scan_classify_reference
+    return compare(f"{label}: mode {mode} n2={words.shape[1]} KW={KW} packed={packed} "
+                   f"ks={len(cks)} members={g}", lambda: kern(*args), lambda: plain(*args),
+                   args, plain_reps)
 
-        def plain():
-            return ksweep_scan.scan_classify_reference(words, pay, cks, mode, mode_params, packed)
 
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max().item())
-    if not torch.equal(got, want):
-        bad = (got != want).nonzero()[:5].tolist()
-        raise AssertionError(f"{label}: kernel != plain scan at {bad}")
-    if want.sum() == 0:
-        raise AssertionError(f"{label}: empty stats, nothing was compared")
-    # in turns: plain, kernel, kernel, plain
-    p1 = time_ms(plain, plain_reps)
-    k1 = time_ms(kern, 10)
-    k2 = time_ms(kern, 10)
-    p2 = time_ms(plain, plain_reps)
-    bound = bound_ms(words, pay, want.numel())
-    print(f"{label}: mode {mode} n2={words.shape[1]} KW={KW} packed={packed} ks={len(cks)} "
-          f"members={g} bins={want.shape[2]}: equal (max_abs_err {err}); kernel {k1:.3f} / "
-          f"{k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, bound {bound:.3f} ms (bytes)",
-          flush=True)
-    return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "bound_ms": bound}
+def perk_kernels_vs_plain(rng):
+    """Kernels A, B and C against their plain versions at phase 3's shapes."""
+    from khoice_tpu_torch.engine.occurrence import _sorted_pairs, pack_members
+    from khoice_tpu_torch.kernels import extract, occ_scan
+
+    dev = torch.device("cuda")
+    results = {}
+    codes = torch.from_numpy(random_members(rng, 1, 1 << 24)[0]).to(dev)
+    gids = torch.from_numpy(rng.integers(0, 256, 1 << 24)).to(dev)
+    errs = []
+    for k in (7, 15, 16, 31, 32, 49, 63):
+        r = compare(f"A extract_canonical n=2^24 k={k}",
+                    lambda: extract.extract_canonical(codes, k),
+                    lambda: extract.extract_canonical_reference(codes, k), (codes,))
+        errs.append(r["max_abs_err"])
+        if k == 31:
+            results["A"] = r
+        if k <= 60:
+            errs.append(compare(f"A extract_packed n=2^24 k={k}",
+                                lambda: extract.extract_packed(codes, gids, k),
+                                lambda: extract.extract_packed_reference(codes, gids, k),
+                                (codes, gids))["max_abs_err"])
+    results["A"]["max_abs_err"] = max(errs)
+    del codes, gids
+
+    members = random_members(rng, 96, 1 << 20)
+    members[0] = np.concatenate([members[0], np.zeros(100_000, np.uint8)])  # poly-A
+    codes, gids = pack_members(members, dev)
+    errs = []
+    for k in (31, 49):
+        words, _ = _sorted_pairs(codes, gids, k, True)
+        r = compare(f"B occ_hist_packed 96x2^20 n={words.shape[1]} W={words.shape[0]} k={k}",
+                    lambda: occ_scan.occ_hist_packed(words, 96, 5000),
+                    lambda: occ_scan.occ_hist_packed_reference(words, 96, 5000), (words,))
+        errs.append(r["max_abs_err"])
+        if k == 31:
+            results["B"] = r
+        del words
+    results["B"]["max_abs_err"] = max(errs)
+    del codes, gids
+
+    codes, gids = pack_members(random_members(rng, 300, 1 << 16), dev)
+    keys, gid = _sorted_pairs(codes, gids, 31, False)
+    results["C"] = compare(f"C occ_hist 300x2^16 n={keys.shape[1]} W={keys.shape[0]} k=31",
+                           lambda: occ_scan.occ_hist(keys, gid, 300, 5000),
+                           lambda: occ_scan.occ_hist_reference(keys, gid, 300, 5000),
+                           (keys, gid))
+    return results
 
 
 def kernels_vs_plain():
     phase("3 kernels vs plain")
     rng = np.random.default_rng(0)
     bench = random_members(rng, 8, 1 << 21)
-    occ = kernel_vs_plain("bench 8x2^21 grid30", bench, K_GRID)
-    wide = kernel_vs_plain("64x2^16 grid30", random_members(rng, 64, 1 << 16), K_GRID)
-    unpacked = kernel_vs_plain("bench 8x2^21 ks11..31", bench, list(range(11, 32)))
+    occ = scan_vs_plain("bench 8x2^21 grid30", bench, K_GRID)
+    wide = scan_vs_plain("64x2^16 grid30", random_members(rng, 64, 1 << 16), K_GRID)
+    unpacked = scan_vs_plain("bench 8x2^21 ks11..31", bench, list(range(11, 32)))
     occ["max_abs_err"] = max(r["max_abs_err"] for r in (occ, wide, unpacked))
     results = {"occ": occ}
-    results["pivot_rest"] = kernel_vs_plain("bench 1+7 members", bench, K_GRID,
-                                            "pivot_rest", 7)
-    results["multi_pivot"] = kernel_vs_plain("bench D=4", bench, K_GRID, "multi_pivot", 4)
+    results["pivot_rest"] = scan_vs_plain("bench 1+7 members", bench, K_GRID, "pivot_rest", 7)
+    results["multi_pivot"] = scan_vs_plain("bench D=4", bench, K_GRID, "multi_pivot", 4)
     groups = random_members(rng, 4, 1 << 21)
-    results["containment"] = kernel_vs_plain("bench 8 queries + 4 groups", bench + groups,
-                                             K_GRID, "containment", (8, 4))
+    results["containment"] = scan_vs_plain("bench 8 queries + 4 groups", bench + groups,
+                                           K_GRID, "containment", (8, 4))
     # the pivot repeats a 60-base block 3000 times: pivot counts of ~6000
     # per run, far above 511 (the TPU kernel's limit) and the cap of 255
     pivot = np.concatenate([bench[0], np.tile(bench[0][1000:1060], 3000)])
-    results["buckets"] = kernel_vs_plain("bench D=4 cap 255", [pivot] + bench[1:5], K_GRID,
-                                         "buckets", (4, 255))
-    wide_c = kernel_vs_plain("63x2^15 containment 42+21", random_members(rng, 63, 1 << 15),
-                             K_GRID, "containment", (42, 21), plain_reps=1)
+    results["buckets"] = scan_vs_plain("bench D=4 cap 255", [pivot] + bench[1:5], K_GRID,
+                                       "buckets", (4, 255))
+    wide_c = scan_vs_plain("63x2^15 containment 42+21", random_members(rng, 63, 1 << 15),
+                           K_GRID, "containment", (42, 21), plain_reps=1)
     results["containment"]["max_abs_err"] = max(results["containment"]["max_abs_err"],
                                                  wide_c["max_abs_err"])
+    del bench, groups, pivot
+    results.update(perk_kernels_vs_plain(rng))
     return results
 
 
-class ScanTimer:
-    """Wraps a scan wrapper the engine imported by name: times every call
-    (CUDA events around the call, read after the run's last synchronize)
-    and, after the timed span, holds the call's result against the plain
-    version (`<name>_reference`) on the same inputs, exactly.  `errors`
-    gets each mode's largest difference, `plain_s` the seconds the checks
-    took; `peak()` is the run's peak device memory without the plain
-    versions' own."""
+class Held:
+    """Wraps kernel wrappers that the engine imported by name: times every
+    call (CUDA events around it, read after the run's last synchronize)
+    and, after the call's timed span, holds the calls `hold(kernel, k)`
+    picks against the plain version on the same inputs, exactly.  A
+    call's k is its extraction's, or the last extraction's for the
+    histogram that follows it.  `errors` gets each kernel's largest
+    difference, `plain_s` the seconds the checks took; `peak()` is the
+    run's peak device memory without the plain versions' own."""
 
-    def __init__(self, module, name):
-        from khoice_tpu_torch.kernels import ksweep_scan
-
-        self.module, self.name = module, name
-        self.plain = getattr(ksweep_scan, f"{name}_reference")
+    def __init__(self, specs, hold):
+        self.specs = specs  # (module, name, kernel label, plain or None)
+        self.hold = hold
         self.calls = []
         self.errors = {}
+        self.k = None
         self.peak_before = 0
         self.plain_s = 0.0
 
-    def __enter__(self):
-        self.orig = getattr(self.module, self.name)
-
-        def timed(words, payload, ks, *args):
+    def _wrap(self, orig, label, plain):
+        def timed(*args):
+            kernel = args[3] if label == "scan_classify" else label
+            if label.startswith("A"):
+                self.k = int(args[-1])
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = self.orig(words, payload, ks, *args)
+            out = orig(*args)
             end.record()
-            mode = "occ" if self.name == "scan_multi_k" else args[0]
-            self.peak_before = max(self.peak_before, torch.cuda.max_memory_allocated())
-            t0 = time.perf_counter()
-            want = self.plain(words, payload, ks, *args)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-            self.plain_s += plain_s
-            torch.cuda.reset_peak_memory_stats()
-            err = int((out - want).abs().max().item())
-            self.errors[mode] = max(self.errors.get(mode, 0), err)
-            if not torch.equal(out, want) or want.sum() == 0:
-                raise AssertionError(f"{mode} scan call at n2={words.shape[1]}: kernel != "
-                                     f"plain (max_abs_err {err}) or empty stats")
-            self.calls.append((mode, words.shape[1], len(ks), out.shape[2],
-                               bound_ms(words, payload, out.numel()), start, end, plain_s))
+            held = plain is not None and self.hold(kernel, self.k)
+            plain_s = 0.0
+            if held:
+                self.peak_before = max(self.peak_before, torch.cuda.max_memory_allocated())
+                t0 = time.perf_counter()
+                want = plain(*args)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                self.plain_s += plain_s
+                torch.cuda.reset_peak_memory_stats()
+                err = max_err(out, want)
+                self.errors[kernel] = max(self.errors.get(kernel, 0), err)
+                first = want[0] if isinstance(want, tuple) else want
+                if err or not first.any():
+                    raise AssertionError(f"{kernel} call (k={self.k}): kernel != plain "
+                                         f"(max_abs_err {err}) or empty result")
+            n = args[0].shape[-1]
+            bound = io_bound_ms(args, out)
+            self.calls.append((kernel, n, self.k, bound, start, end, held, plain_s))
             return out
+        return timed
 
-        setattr(self.module, self.name, timed)
+    def __enter__(self):
+        self.origs = []
+        for module, name, label, plain in self.specs:
+            orig = getattr(module, name)
+            self.origs.append((module, name, orig))
+            setattr(module, name, self._wrap(orig, label, plain))
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.orig)
+        for module, name, orig in reversed(self.origs):
+            setattr(module, name, orig)
 
     def peak(self):
         return max(self.peak_before, torch.cuda.max_memory_allocated())
 
-    def report(self):
+    def report(self, per_call):
+        """Each call (per_call) or, per kernel, calls, time and checks."""
         torch.cuda.synchronize()
-        for what, n, nks, bins, bound, start, end, plain_s in self.calls:
-            print(f"  scan call: {what} n2={n} ks={nks} bins={bins}: "
-                  f"{start.elapsed_time(end):.3f} ms (bound {bound:.3f} ms); equal to "
-                  f"the plain version ({plain_s:.2f} s)")
+        per = {}
+        for kernel, n, k, bound, start, end, held, plain_s in self.calls:
+            ms = start.elapsed_time(end)
+            if kernel in per_call:
+                print(f"  {kernel} call n={n}: {ms:.3f} ms (bound {bound:.3f} ms); "
+                      f"{'equal to the plain version (%.2f s)' % plain_s if held else 'not held'}")
+            s = per.setdefault(kernel, {"calls": 0, "ms": 0.0, "bound_ms": 0.0, "held": 0,
+                                        "plain_s": 0.0, "n_max": 0})
+            s["calls"] += 1
+            s["ms"] += ms
+            s["bound_ms"] += bound
+            s["held"] += held
+            s["plain_s"] += plain_s
+            s["n_max"] = max(s["n_max"], n)
+        for kernel, s in per.items():
+            if kernel not in per_call:
+                print(f"  {kernel}: {s['calls']} calls, {s['ms']:.2f} ms in all "
+                      f"({s['ms'] / s['calls']:.3f} ms per call, n up to {s['n_max']}), "
+                      f"bound {s['bound_ms']:.2f} ms; {s['held']} held, equal "
+                      f"({s['plain_s']:.2f} s of plain)")
+        return per
+
+
+def kernel_specs(scan_plain):
+    """The wrappers the engine calls, each with its plain version (the scan
+    wrappers' only when scan_plain)."""
+    from khoice_tpu_torch.classify import annotate
+    from khoice_tpu_torch.engine import ksweep, ksweep_classify, occurrence, ops
+    from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
+
+    return [
+        (ksweep, "scan_multi_k", "occ",
+         ksweep_scan.scan_multi_k_reference if scan_plain else None),
+        (ksweep_classify, "scan_classify", "scan_classify",
+         ksweep_scan.scan_classify_reference if scan_plain else None),
+        (occurrence, "extract_packed", "A packed", extract.extract_packed_reference),
+        (occurrence, "extract_canonical", "A keys", extract.extract_canonical_reference),
+        (ops, "extract_canonical", "A keys", extract.extract_canonical_reference),
+        (occurrence, "occ_hist_packed", "B", occ_scan.occ_hist_packed_reference),
+        (occurrence, "occ_hist", "C", occ_scan.occ_hist_reference),
+        (ksweep, "sort_words", "sort (plain torch)", None),
+        (occurrence, "sort_words", "sort (plain torch)", None),
+        (ops, "sort_words", "sort (plain torch)", None),
+        (annotate, "sort_words", "sort (plain torch)", None),
+    ]
 
 
 def reset_counts():
-    from khoice_tpu_torch.kernels import ksweep_scan
+    from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
 
-    for mode in ksweep_scan.launches:
-        ksweep_scan.launches[mode] = 0
+    for counts in (ksweep_scan.launches, extract.launches, occ_scan.launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def read_counts():
-    from khoice_tpu_torch.kernels import ksweep_scan
+    """Launches per kernel: the scan's modes, A (extraction, both forms),
+    B (packed histogram) and C (unpacked histogram)."""
+    from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
 
-    return dict(ksweep_scan.launches)
+    counts = dict(ksweep_scan.launches)
+    counts["A"] = extract.launches["keys"] + extract.launches["packed"]
+    counts["B"] = occ_scan.launches["packed"]
+    counts["C"] = occ_scan.launches["unpacked"]
+    return counts
 
 
 def count_lines(path):
@@ -288,15 +435,16 @@ def count_lines(path):
     return len(lines)
 
 
-def run_path(label, argv, module, name, uses, expect_lines):
+def run_path(label, argv, hold, uses, expect_lines, scan_plain=True):
     """Drive one main path through the CLI with every count set to 0 just
-    before it, each scan call held against its plain version; return the
-    counts read just after and each mode's largest difference."""
+    before it, its kernel calls timed and held against their plain
+    versions; return the counts read just after, each kernel's largest
+    difference and the per-kernel call summary."""
     from khoice_tpu_torch import cli
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with ScanTimer(module, name) as timer:
+    with Held(kernel_specs(scan_plain), hold) as held:
         reset_counts()
         t0 = time.perf_counter()
         rc = cli.main(argv)
@@ -305,64 +453,112 @@ def run_path(label, argv, module, name, uses, expect_lines):
         counts = read_counts()
     if rc != 0:
         raise AssertionError(f"{label} returned {rc}")
-    for mode in uses:
-        if counts[mode] < 1:
-            raise AssertionError(f"{label}: the {mode} kernel was never launched")
+    for kernel in uses:
+        if counts[kernel] < 1:
+            raise AssertionError(f"{label}: the {kernel} kernel was never launched")
     lines = {os.path.basename(p): count_lines(p) for p in expect_lines}
     for path, want in expect_lines.items():
         if lines[os.path.basename(path)] != want:
             raise AssertionError(f"{label}: {path} has {lines[os.path.basename(path)]} "
                                  f"lines, expected {want}")
-    peak = timer.peak()
-    print(f"{label} on 4x8x{DB_MBP} Mbp, 30 ks: wall {wall - timer.plain_s:.2f} s (and "
-          f"{timer.plain_s:.2f} s of plain checks), peak device memory "
-          f"{peak / 2**30:.2f} GiB, launches {counts}, lines {lines}", flush=True)
-    timer.report()
-    return counts, timer.errors
+    print(f"{label}: wall {wall - held.plain_s:.2f} s (and {held.plain_s:.2f} s of plain "
+          f"checks), peak device memory {held.peak() / 2**30:.2f} GiB, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, lines {lines}", flush=True)
+    per = held.report(per_call=("occ",) + MODES if scan_plain else ())
+    return counts, held.errors, per
 
 
-def main_paths(tmp):
-    phase("4 main paths: run --exp-type 1, 2, 3, 4")
-    from khoice_tpu_torch.engine import ksweep, ksweep_classify
-
-    db = os.path.join(tmp, "db")
+def gen_db(tmp, name, datasets, genomes, mbp):
+    db = os.path.join(tmp, name)
     t0 = time.perf_counter()
     subprocess.run(
         [sys.executable, os.path.join(ROOT, "tools", "gen_realistic_db.py"), db,
-         "--datasets", "4", "--genomes", "8", "--mbp", str(DB_MBP), "--seed", "7"],
+         "--datasets", str(datasets), "--genomes", str(genomes), "--mbp", str(mbp),
+         "--seed", "7"],
         check=True, capture_output=True,
     )
-    print(f"database 4 x 8 x {DB_MBP} Mbp generated in {time.perf_counter() - t0:.1f} s")
+    print(f"database {datasets} x {genomes} x {mbp} Mbp generated in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return db
+
+
+def merge(errors, into):
+    for kernel, err in errors.items():
+        into[kernel] = max(into.get(kernel, 0), err)
+
+
+def main_paths(tmp):
+    phase("4a main paths on 4 x 8 x 2 Mbp: run --exp-type 1, 2, 3, 4; 3 and 4 per-k")
+    db = gen_db(tmp, "db", 4, 8, 2.0)
     g = len(K_GRID)
-    work1 = os.path.join(tmp, "work1")
+    every = lambda kernel, k: True  # noqa: E731
     launches, errors = {}, {}
-    c, e = run_path("exp1", ["run", "--exp-type", "1", "--database-root", db, "--work-root", work1],
-                 ksweep, "scan_multi_k", ["occ"], {
-                     os.path.join(work1, "step_5/within_datasets_analysis.csv"): 1 + 4 * g,
-                     os.path.join(work1, "step_9/across_datasets_analysis.csv"): 1 + g})
+    work1 = os.path.join(tmp, "work1")
+    c, e, _ = run_path("exp1, 30 ks", ["run", "--exp-type", "1", "--database-root", db,
+                                       "--work-root", work1], every, ["occ"], {
+        os.path.join(work1, "step_5/within_datasets_analysis.csv"): 1 + 4 * g,
+        os.path.join(work1, "step_9/across_datasets_analysis.csv"): 1 + g})
     launches["occ"] = c["occ"]
-    errors.update(e)
+    merge(e, errors)
     work = os.path.join(tmp, "work")
     common = ["--database-root", db, "--work-root", work, "--kmers-per-dataset", "2000000"]
-    c, e = run_path("exp2 (with exp0)", ["run", "--exp-type", "2", *common],
-                 ksweep_classify, "scan_classify", ["pivot_rest", "multi_pivot"], {
-                     os.path.join(work, "within_dataset_analysis_type_2/"
-                                  "within_dataset_analysis.csv"): 1 + 4 * g,
-                     os.path.join(work, "across_dataset_analysis_type_2/"
-                                  "across_dataset_analysis.csv"): 1 + 4 * g})
+    c, e, _ = run_path("exp2 (with exp0), 30 ks", ["run", "--exp-type", "2", *common], every,
+                       ["pivot_rest", "multi_pivot"], {
+        os.path.join(work, "within_dataset_analysis_type_2/within_dataset_analysis.csv"): 1 + 4 * g,
+        os.path.join(work, "across_dataset_analysis_type_2/across_dataset_analysis.csv"): 1 + 4 * g})
     launches["pivot_rest"], launches["multi_pivot"] = c["pivot_rest"], c["multi_pivot"]
-    errors.update(e)
-    c, e = run_path("exp3", ["run", "--exp-type", "3", *common],
-                 ksweep_classify, "scan_classify", ["containment"], {
-                     os.path.join(work, "final_analysis_type3/final_analysis_type3.csv"):
-                         1 + 2 * 4 * g * 4})
+    merge(e, errors)
+    c, e, _ = run_path("exp3, 30 ks", ["run", "--exp-type", "3", *common], every, ["containment"], {
+        os.path.join(work, "final_analysis_type3/final_analysis_type3.csv"): 1 + 2 * 4 * g * 4})
     launches["containment"] = c["containment"]
-    errors.update(e)
-    c, e = run_path("exp4", ["run", "--exp-type", "4", *common],
-                 ksweep_classify, "scan_classify", ["buckets"], {
-                     os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * g})
+    merge(e, errors)
+    c, e, _ = run_path("exp4, 30 ks", ["run", "--exp-type", "4", *common], every, ["buckets"], {
+        os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * g})
     launches["buckets"] = c["buckets"]
-    errors.update(e)
+    merge(e, errors)
+    # the per-k table ops: a 2-k grid leaves every k to them
+    perk = ["--force", "--k-values", "21,31"]
+    c, e, _ = run_path("exp3 per-k (ks 21,31)", ["run", "--exp-type", "3", *common, *perk],
+                       every, ["A"], {
+        os.path.join(work, "final_analysis_type3/final_analysis_type3.csv"): 1 + 2 * 4 * 2 * 4})
+    merge(e, errors)
+    c, e, _ = run_path("exp4 per-k (ks 21,31)", ["run", "--exp-type", "4", *common, *perk],
+                       every, ["A"], {
+        os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * 2})
+    merge(e, errors)
+    return launches, errors
+
+
+def large_group_paths(tmp):
+    phase("4b main path on 2 x 96 x 1 Mbp (groups over the 64-member mask): "
+          "run --exp-type 1, 2")
+    db = gen_db(tmp, "db96", 2, 96, 1.0)
+    g = len(K_GRID)
+    at_hold_ks = lambda kernel, k: k in HOLD_KS  # noqa: E731
+    launches, errors, per = {}, {}, {}
+    work1 = os.path.join(tmp, "work96_1")
+    c, e, per["exp1"] = run_path(
+        "exp1 on 2 x 96 x 1 Mbp, 30 ks", ["run", "--exp-type", "1", "--database-root", db,
+                                          "--work-root", work1],
+        at_hold_ks, ["A", "B", "occ"], {
+            os.path.join(work1, "step_5/within_datasets_analysis.csv"): 1 + 2 * g,
+            os.path.join(work1, "step_9/across_datasets_analysis.csv"): 1 + g},
+        scan_plain=False)
+    launches["A"], launches["B"] = c["A"], c["B"]
+    merge(e, errors)
+    work2 = os.path.join(tmp, "work96_2")
+    c, e, per["exp2"] = run_path(
+        "exp2 (with exp0) on 2 x 96 x 1 Mbp, 30 ks",
+        ["run", "--exp-type", "2", "--database-root", db, "--work-root", work2,
+         "--kmers-per-dataset", "2000000"],
+        at_hold_ks, ["A", "multi_pivot"], {
+            os.path.join(work2, "within_dataset_analysis_type_2/within_dataset_analysis.csv"): 1 + 2 * g,
+            os.path.join(work2, "across_dataset_analysis_type_2/across_dataset_analysis.csv"): 1 + 2 * g},
+        scan_plain=False)
+    merge(e, errors)
+    held = {kernel: per["exp1"].get(kernel, {}).get("held", 0) + per["exp2"].get(kernel, {}).get("held", 0)
+            for kernel in ("A packed", "A keys", "B")}
+    print(f"held against their plain versions at k in {HOLD_KS}: {held} calls, all equal")
     return launches, errors
 
 
@@ -403,49 +599,74 @@ def read_hist(path):
         return [int(line.split()[1]) for line in fd if line.strip()]
 
 
-def small_genomes(rng, n_groups, per_group):
+def small_genomes(rng, n_groups, per_group, base_len=3000, extra=300):
     def dna(n):
         return "".join("ACGT"[rng.randrange(4)] for _ in range(n))
 
-    base = dna(3000)
+    base = dna(base_len)
     groups = {}
     for num in range(1, n_groups + 1):
         genomes = []
         for i in range(per_group):
             seq = list(base)
-            for _ in range(150 + 40 * num):
+            for _ in range((150 + 40 * num) * base_len // 3000):
                 seq[rng.randrange(len(seq))] = "ACGT"[rng.randrange(4)]
             p = rng.randrange(len(seq) - 100)
-            seq[p:p + 30 + 10 * i] = "N" * (30 + 10 * i)
-            genomes.append(["".join(seq), dna(300)])
+            n_run = (30 + 10 * i) % 90
+            seq[p:p + n_run] = "N" * n_run
+            genomes.append(["".join(seq), dna(extra)])
         groups[num] = genomes
     return groups
 
 
+def check_exp1_hists(groups, ks, out, cx=10000):
+    for k in ks:
+        group_sets = []
+        for num in sorted(groups):
+            sets = [canonical_kmers(genome, k) for genome in groups[num]]
+            got = read_hist(os.path.join(
+                out, f"step_4/k_{k}/dataset_{num}/dataset_{num}_k{k}_hist.txt"))
+            if got != presence_histogram(sets, cx):
+                raise AssertionError(f"{out}: step_4 k={k} group {num}: histogram differs")
+            group_sets.append(set().union(*sets))
+        got = read_hist(os.path.join(out, f"step_8/k_{k}/all_datasets_k{k}_hist.txt"))
+        if got != presence_histogram(group_sets, cx):
+            raise AssertionError(f"{out}: step_8 k={k}: histogram differs")
+
+
 def small_world_exp1(tmp):
-    phase("5a small world: exp1 vs a dict-based counter")
+    phase("5a small worlds: exp1 vs a dict-based counter")
     from khoice_tpu_torch.pipelines.exp1 import run_exp1
 
     groups = small_genomes(random.Random(1234), 2, 3)
     ks = [5, 12, 21, 31, 33, 45, 49]
     out = os.path.join(tmp, "small")
     run_exp1(groups, ks, out, "cuda")
-    cx = 10000
-    for k in ks:
-        group_sets = []
-        for num in sorted(groups):
-            sets = [canonical_kmers(genome, k) for genome in groups[num]]
-            want = presence_histogram(sets, cx)
-            got = read_hist(os.path.join(
-                out, f"step_4/k_{k}/dataset_{num}/dataset_{num}_k{k}_hist.txt"))
-            if got != want:
-                raise AssertionError(f"step_4 k={k} group {num}: histogram differs")
-            group_sets.append(set().union(*sets))
-        got = read_hist(os.path.join(out, f"step_8/k_{k}/all_datasets_k{k}_hist.txt"))
-        if got != presence_histogram(group_sets, cx):
-            raise AssertionError(f"step_8 k={k}: histogram differs")
+    check_exp1_hists(groups, ks, out)
     print(f"step_4 and step_8 histograms equal the dict-based counter's "
           f"(2 groups x 3 genomes, ks {ks})")
+    # groups of 70 and 300 genomes: the per-k path, packed and unpacked
+    rng = random.Random(4321)
+    big = small_genomes(rng, 2, 300, base_len=400, extra=40)
+    big[1] = big[1][:70]
+    for ks in ([21, 31], [5, 12, 21, 31, 33, 45, 61]):
+        out = os.path.join(tmp, f"small_big_{len(ks)}")
+        reset_counts()
+        run_exp1(big, ks, out, "cuda")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for kernel in ("A", "B", "C"):
+            if counts[kernel] < 1:
+                raise AssertionError(f"70 + 300 genomes, ks {ks}: the {kernel} kernel "
+                                     "was never launched")
+        check_exp1_hists(big, ks, out)
+        print(f"step_4 and step_8 histograms equal the dict-based counter's (groups of 70 "
+              f"and 300 genomes, ks {ks}); launches A {counts['A']}, B {counts['B']}, "
+              f"C {counts['C']}, occ {counts['occ']}", flush=True)
+    # C's record reports the last run alone, counted from 0 just before it
+    print(f"kernel C's launches in the kernels line: run_exp1 on groups of 70 and 300 "
+          f"genomes, ks {ks}: {counts['C']}")
+    return counts["C"]
 
 
 def small_world_classify():
@@ -526,9 +747,53 @@ def small_world_classify():
           f"dict-based counter's (ks {ks})")
 
 
-def kernel_record(name, replaces, launches, r):
+def small_world_tables():
+    phase("5c small world: the table ops vs a dict-based counter")
+    from khoice_tpu_torch.engine.session import KmerEngine
+    from khoice_tpu_torch.io.packing import encode_records as enc
+
+    groups = small_genomes(random.Random(7), 1, 4)
+    genomes = groups[1]
+    genomes[0] = genomes[0] + [genomes[0][0][500:560] * 8]  # counts above the cap
+    eng = KmerEngine("cuda")
+    cs, ucs = 5, 3
+    for k in (11, 31, 45):
+        raw = [canonical_counts(g, k) for g in genomes]
+
+        def as_dict(t):
+            return dict(t.dump())
+
+        a = eng.count_codes(enc(genomes[0]), k, cs=cs)
+        want_a = {x: min(c, cs) for x, c in raw[0].items()}
+        if as_dict(a) != want_a:
+            raise AssertionError(f"count_codes k={k} differs")
+        sets = [eng.set_counts(eng.count_codes(enc(g), k), 1) for g in genomes[1:]]
+        u = eng.union(sets + [a], cs=ucs)
+        want_u = dict(want_a)
+        for r in raw[1:]:
+            for x in r:
+                want_u[x] = want_u.get(x, 0) + 1
+        want_u = {x: min(c, ucs) for x, c in want_u.items()}
+        if as_dict(u) != want_u:
+            raise AssertionError(f"union k={k} differs")
+        inter = as_dict(eng.intersect_sum(a, sets[0]))
+        if inter != {x: min(c + 1, 255) for x, c in want_a.items() if x in raw[1]}:
+            raise AssertionError(f"intersect_sum k={k} differs")
+        sub = as_dict(eng.subtract(a, sets[0]))
+        if sub != {x: c for x, c in want_a.items() if x not in raw[1]}:
+            raise AssertionError(f"subtract k={k} differs")
+        hist = eng.histogram(u, cx=10)
+        if hist != [sum(1 for c in want_u.values() if c == i) for i in range(1, 11)]:
+            raise AssertionError(f"histogram k={k} differs")
+        if not (inter and sub and max(want_a.values()) == cs):
+            raise AssertionError(f"k={k}: an empty or unsaturated case, nothing compared")
+    print("count_codes, union, intersect_sum, subtract and histogram equal the dict-based "
+          "counter's (ks 11, 31, 45)")
+
+
+def kernel_record(name, source, replaces, launches, r):
     return {
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
@@ -548,13 +813,20 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         launches, errors = main_paths(tmp)
-        for mode, err in errors.items():
-            results[mode]["max_abs_err"] = max(results[mode]["max_abs_err"], err)
-        walls["main paths"] = time.perf_counter() - t0
+        walls["main paths 4 x 8"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        small_world_exp1(tmp)
+        big_launches, big_errors = large_group_paths(tmp)
+        walls["main paths 2 x 96"] = time.perf_counter() - t0
+        launches.update(big_launches)
+        merge(big_errors, errors)
+        t0 = time.perf_counter()
+        launches["C"] = small_world_exp1(tmp)
         small_world_classify()
+        small_world_tables()
         walls["small worlds"] = time.perf_counter() - t0
+    for kernel, err in errors.items():
+        key = kernel.split()[0]  # "A keys", "A packed" -> "A"
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     reference = sorted(m for m in sys.modules if m == "khoice_tpu" or m.startswith("khoice_tpu."))
@@ -563,9 +835,18 @@ def main():
     walls["all"] = time.perf_counter() - t_all
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     print(smi_line())
-    kernels = [kernel_record("ksweep_scan", f"{REPLACES}:299", launches["occ"], results["occ"])]
-    kernels += [kernel_record(f"ksweep_scan.{mode}", f"{REPLACES}:221", launches[mode],
-                              results[mode]) for mode in MODES]
+    kernels = [kernel_record("ksweep_scan", SCAN_SOURCE, f"{SCAN_REPLACES}:299",
+                             launches["occ"], results["occ"])]
+    kernels += [kernel_record(f"ksweep_scan.{mode}", SCAN_SOURCE, f"{SCAN_REPLACES}:221",
+                              launches[mode], results[mode]) for mode in MODES]
+    kernels += [
+        kernel_record("extract_canonical", "khoice_tpu_torch/csrc/extract_canonical.cu",
+                      "khoice_tpu/kernels/extract_pallas.py:86", launches["A"], results["A"]),
+        kernel_record("occ_scan.packed", "khoice_tpu_torch/csrc/occ_scan.cu",
+                      "khoice_tpu/kernels/occ_scan_pallas.py:205", launches["B"], results["B"]),
+        kernel_record("occ_scan.unpacked", "khoice_tpu_torch/csrc/occ_scan.cu",
+                      "khoice_tpu/kernels/occ_scan_pallas.py:238", launches["C"], results["C"]),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

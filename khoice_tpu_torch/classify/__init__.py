@@ -1,4 +1,5 @@
-"""Classification reports of the port: `confusion.py`, copied from the JAX
-package.  The JAX package's `classify/__init__.py` also imports
-`annotate.py` (exp6's device annotation, not ported), so nothing is
-re-exported here."""
+"""Classification layers of the port: `confusion.py`, copied from the JAX
+package, and `annotate.py`, the pivot annotation of exp4's per-k path
+(exp6's read voting is not ported).  The JAX package's
+`classify/__init__.py` re-exports both; the port's drivers import the
+modules directly, so nothing is re-exported here."""

@@ -2,8 +2,10 @@
 
 The flags are khoice_tpu's (`python -m khoice_tpu run ...`) plus
 `--device` (default `cuda`).  The port runs exp0 (host only) and exp1-4
-on one device; exp5-8 and the sharded sweep are served by
-`python -m khoice_tpu` until they are ported.  Inputs follow the
+on one device, on groups of any size and any k grid (groups of more than
+64 genomes and small grids take the per-k fused path); exp5-8 and the
+sharded sweep are served by `python -m khoice_tpu` until they are
+ported.  Inputs follow the
 reference database layout (`database_root/dataset_{i}/*.fna.gz`) and
 exp0's trial_{t}/ layout; outputs land under --work-root with the
 reference's directory names, and a stage whose outputs exist is skipped
@@ -185,8 +187,8 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
                 name="exp2",
                 outputs=[os.path.join(cfg.work_root, "within_dataset_analysis_type_2/within_dataset_analysis.csv")],
                 fn=lambda: run_exp2(pivots, nonpivot_genomes, cfg.k_values, cfg.work_root,
-                                    device, union_cs=cfg.union_cs, hist_cx=cfg.hist_cx,
-                                    device_budget_bytes=budget),
+                                    device, union_cs=cfg.union_cs,
+                                    hist_cx=cfg.hist_cx, device_budget_bytes=budget),
             )])
         elif et == 3:
             from .pipelines.exp3 import run_exp3, simulate_exp3_reads
@@ -236,9 +238,9 @@ def main(argv=None) -> int:
     run_p.add_argument("--mesh-shards", type=int, default=None,
                        help="devices along the k-mer key-range mesh axis (not ported: 1 only)")
     run_p.add_argument("--device-budget-gb", type=float, default=None,
-                       help="device memory budget of the exp1-4 sweeps (default: "
-                            "85%% of the device; a sweep beyond it raises, the "
-                            "streaming sweep is not ported)")
+                       help="device memory budget of the exp1-4 sweeps and per-k "
+                            "sorts (default: 85%% of the device; a group beyond it "
+                            "raises, the streaming sweep is not ported)")
     run_p.add_argument("--trials", type=int, default=None,
                        help="fan exp0/2/3/4 over trials 1..N (reference NUM_TRIALS; "
                             "ignored by exp1)")

@@ -59,12 +59,12 @@
 //     members at 32, the classification modes at 32 members and 128 bins);
 //   * CUDA blocks run in no order, so the TPU kernel's sequential-grid
 //     carry (previous key, open run's OR and pivot sum, pal bits in SMEM)
-//     becomes three passes: (1) per tile and k, the segmented summary (a
-//     run starts in the tile? OR and pivot count of the tile's last open
-//     segment); (2) per k, a block scan over the tile summaries gives each
-//     tile's carry-in; (3) each tile rescans with its carry-in and bins
-//     every run at its end into a shared-memory histogram, flushed with
-//     global atomics;
+//     becomes three passes (the helpers of seg_scan.cuh): (1) per tile
+//     and k, the segmented summary (a run starts in the tile? OR and
+//     pivot count of the tile's last open segment); (2) per k, a block
+//     scan over the tile summaries gives each tile's carry-in; (3) each
+//     tile rescans with its carry-in and bins every run at its end into a
+//     shared-memory histogram, flushed with global atomics;
 //   * the classification modes add work only where a run closes (one bin
 //     or a few per run), not per element; the buckets sum rides the same
 //     shuffles as the OR;
@@ -79,6 +79,8 @@
 // are left for later work.
 
 #include <cuda_runtime.h>
+
+#include "seg_scan.cuh"
 
 namespace {
 
@@ -106,56 +108,24 @@ struct Params {
   int bins;
 };
 
-// Segmented scan value: f = a run starts inside, v = OR since the last
-// start (or of everything when none does), s = the pivot elements over
-// the same span (buckets mode only; 0 elsewhere, so it costs nothing).
+// Segmented scan value (seg_scan.cuh): f = a run starts inside, v = OR
+// since the last start (or of everything when none does), s = the pivot
+// elements over the same span (buckets mode, SUM, only; 0 elsewhere, so it
+// costs nothing).  No padding: f and s share the 8 bytes before v.
+template <bool SUM>
 struct Seg {
   int f;
-  u64 v;
   unsigned s;
+  u64 v;
+  static __device__ __forceinline__ Seg combine(Seg a, Seg b) {  // a precedes b
+    return Seg{a.f | b.f, SUM ? (b.f ? b.s : a.s + b.s) : 0u, b.f ? b.v : (a.v | b.v)};
+  }
+  static __device__ __forceinline__ Seg shfl_up(Seg x, int d) {
+    return Seg{__shfl_up_sync(0xffffffffu, x.f, d),
+               SUM ? __shfl_up_sync(0xffffffffu, x.s, d) : 0u,
+               __shfl_up_sync(0xffffffffu, x.v, d)};
+  }
 };
-
-template <bool SUM>
-__device__ __forceinline__ Seg seg_combine(Seg a, Seg b) {  // a precedes b
-  Seg r;
-  r.f = a.f | b.f;
-  r.v = b.f ? b.v : (a.v | b.v);
-  r.s = SUM ? (b.f ? b.s : a.s + b.s) : 0u;
-  return r;
-}
-
-// Exclusive segmented scan across the block's threads; *total gets the
-// whole block's value.  sh holds one Seg per warp.
-template <int NTHREADS, bool SUM>
-__device__ Seg block_seg_scan(Seg x, Seg* total, Seg* sh) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  Seg inc = x;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    Seg o;
-    o.f = __shfl_up_sync(0xffffffffu, inc.f, off);
-    o.v = __shfl_up_sync(0xffffffffu, inc.v, off);
-    o.s = SUM ? __shfl_up_sync(0xffffffffu, inc.s, off) : 0u;
-    if (lane >= off) inc = seg_combine<SUM>(o, inc);
-  }
-  Seg exc;
-  exc.f = __shfl_up_sync(0xffffffffu, inc.f, 1);
-  exc.v = __shfl_up_sync(0xffffffffu, inc.v, 1);
-  exc.s = SUM ? __shfl_up_sync(0xffffffffu, inc.s, 1) : 0u;
-  if (lane == 0) exc = Seg{0, 0ull, 0u};
-  if (lane == 31) sh[warp] = inc;
-  __syncthreads();
-  Seg pre = {0, 0ull, 0u};
-  Seg tot = {0, 0ull, 0u};
-  for (int w = 0; w < NTHREADS / 32; ++w) {
-    if (w < warp) pre = seg_combine<SUM>(pre, sh[w]);
-    tot = seg_combine<SUM>(tot, sh[w]);
-  }
-  __syncthreads();  // sh is reused by the next call
-  *total = tot;
-  return seg_combine<SUM>(pre, exc);
-}
 
 __device__ __forceinline__ int clz128(u64 hi, u64 lo) {
   return hi ? __clzll(hi) : 64 + __clzll(lo);
@@ -229,11 +199,11 @@ __device__ __forceinline__ unsigned pivot_one(int gn, int k) {
 
 // Segmented summary of a thread's elements for one k.
 template <bool SUM>
-__device__ __forceinline__ Seg thread_summary(const int (&gn)[EPT],
+__device__ __forceinline__ Seg<SUM> thread_summary(const int (&gn)[EPT],
                                               const int (&lcp)[EPT + 1],
                                               long long base, long long n,
                                               int k) {
-  Seg s = {0, 0ull, 0u};
+  Seg<SUM> s{};
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
     if (base + e < n) {
@@ -341,15 +311,15 @@ __global__ void __launch_bounds__(NT)
                    const long long* __restrict__ pay, long long n, KList ks,
                    int* __restrict__ tile_f, u64* __restrict__ tile_v,
                    unsigned* __restrict__ tile_s, int n_tiles) {
-  __shared__ Seg sh[NT / 32];
+  __shared__ Seg<SUM> sh[NT / 32];
   const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * EPT;
   u64 hi[EPT], lo[EPT];
   int gn[EPT], lcp[EPT + 1];
   load_thread<KW, PACKED>(words, pay, n, base, hi, lo, gn, lcp);
 #pragma unroll 1
   for (int q = 0; q < ks.n; ++q) {
-    Seg tot;
-    block_seg_scan<NT, SUM>(thread_summary<SUM>(gn, lcp, base, n, ks.k[q]), &tot, sh);
+    Seg<SUM> tot;
+    seg_scan::block_scan<NT>(thread_summary<SUM>(gn, lcp, base, n, ks.k[q]), &tot, sh);
     if (threadIdx.x == 0) {
       const long long t = (long long)q * n_tiles + blockIdx.x;
       tile_f[t] = tot.f;
@@ -367,33 +337,31 @@ __global__ void __launch_bounds__(NT_CARRY)
     tile_carries(const int* __restrict__ tile_f, const u64* __restrict__ tile_v,
                  const unsigned* __restrict__ tile_s, u64* __restrict__ carry,
                  unsigned* __restrict__ carry_s, int n_tiles) {
-  __shared__ Seg sh[NT_CARRY / 32];
+  __shared__ Seg<SUM> sh[NT_CARRY / 32];
   const long long off = (long long)blockIdx.x * n_tiles;
-  const int per = (n_tiles + NT_CARRY - 1) / NT_CARRY;
-  const int t0 = min((int)threadIdx.x * per, n_tiles);
-  const int t1 = min(t0 + per, n_tiles);
-  Seg s = {0, 0ull, 0u};
-  for (int t = t0; t < t1; ++t)
-    s = seg_combine<SUM>(s, Seg{tile_f[off + t], tile_v[off + t], SUM ? tile_s[off + t] : 0u});
-  Seg tot;
-  Seg run = block_seg_scan<NT_CARRY, SUM>(s, &tot, sh);
-  for (int t = t0; t < t1; ++t) {
-    carry[off + t] = run.v;
-    if (SUM) carry_s[off + t] = run.s;
-    run = seg_combine<SUM>(run, Seg{tile_f[off + t], tile_v[off + t], SUM ? tile_s[off + t] : 0u});
-  }
+  seg_scan::carry_scan<NT_CARRY>(
+      n_tiles, sh,
+      [&](int t) {
+        return Seg<SUM>{tile_f[off + t], SUM ? tile_s[off + t] : 0u, tile_v[off + t]};
+      },
+      [&](int t, Seg<SUM> c) {
+        carry[off + t] = c.v;
+        if (SUM) carry_s[off + t] = c.s;
+      });
 }
 
 // Pass 3: rescan each tile with its carry-in; bin each run at its end
 // into the block's histogram h[2][ks.n][mp.bins] (dynamic shared memory).
+// Two blocks per SM: without the bound the buckets pass at KW = 4 takes
+// 138 registers, one block per SM and 1.54x the time (H100).
 template <int KW, bool PACKED, int MODE>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
     count_runs(const long long* __restrict__ words,
                const long long* __restrict__ pay, long long n, KList ks,
                const u64* __restrict__ carry, const unsigned* __restrict__ carry_s,
                int n_tiles, Params mp, u64* __restrict__ hist) {
   constexpr bool SUM = MODE == BUCKETS;
-  __shared__ Seg sh[NT / 32];
+  __shared__ Seg<SUM> sh[NT / 32];
   extern __shared__ unsigned h[];
   const int per_p = ks.n * mp.bins;
   for (int j = threadIdx.x; j < 2 * per_p; j += NT) h[j] = 0u;
@@ -408,8 +376,8 @@ __global__ void __launch_bounds__(NT)
     const int k2 = 2 * k;
     unsigned* hd = h + q * mp.bins;
     unsigned* hp = h + per_p + q * mp.bins;
-    Seg tot;
-    const Seg ex = block_seg_scan<NT, SUM>(thread_summary<SUM>(gn, lcp, base, n, k), &tot, sh);
+    Seg<SUM> tot;
+    const Seg<SUM> ex = seg_scan::block_scan<NT>(thread_summary<SUM>(gn, lcp, base, n, k), &tot, sh);
     const long long ci = (long long)q * n_tiles + blockIdx.x;
     u64 acc = ex.f ? ex.v : (carry[ci] | ex.v);
     unsigned sacc = SUM ? (ex.f ? ex.s : carry_s[ci] + ex.s) : 0u;

@@ -38,7 +38,12 @@ from ..kernels.ksweep_scan import (  # noqa: F401  (scan_multi_k_reference re-ex
     scan_multi_k,
     scan_multi_k_reference,
 )
-from .occurrence import occ_words_static, pack_members
+from ..kernels.extract import occ_words_static
+from ..utils.logging import get_logger
+from .occurrence import occurrence_histogram_packed, pack_members
+from .sort import sort_words
+
+log = get_logger("khoice.ksweep")
 
 
 def _pack_spare(kmax: int, KW: int) -> int:
@@ -80,9 +85,10 @@ def plan_sweep(ks: Sequence[int], n_members: int,
     to the per-k path, which sorts occ_words_static(k) words over the
     undoubled text); MASTER sorts once at kmax = max(ks) for every k.
     The cheaper plan wins; n_members above the mask limit disables the
-    sweep.  Equal to khoice_tpu.engine.ksweep.plan_sweep at the same
-    mask_limit; the default is exp1's 64 (the JAX default of 32 serves its
-    classification scans, not ported).
+    sweep (every k goes to the per-k path).  Equal to
+    khoice_tpu.engine.ksweep.plan_sweep at the same mask_limit; the
+    default is exp1's 64 (the JAX default of 32 serves its classification
+    scans).
     """
     ks = sorted(set(int(k) for k in ks))
     if n_members > mask_limit or n_members > (1 << PACK_GID_BITS):
@@ -160,27 +166,6 @@ def _extract_fwd_sweep(codes2: torch.Tensor, gids2: torch.Tensor, kmax: int,
     return fwd, (gids2 << NIO_BITS) | nio
 
 
-def sort_words(words: torch.Tensor, payload: torch.Tensor | None = None):
-    """Sort int64 [KW, n] key words as unsigned KW*32-bit keys; the
-    payload (if any) follows its element.
-
-    Word pairs fold into signed int64 keys with the sign bit flipped
-    ((w0 - 2^31) * 2^32 + w1), and stable sorts run from the least
-    significant pair up (LSD).  Ties are identical elements in packed
-    mode; in unpacked mode the order within equal keys differs from
-    XLA's unstable sort, which no histogram depends on."""
-    KW = words.shape[0]
-    cols = list(words) + [torch.zeros_like(words[0])] * (KW % 2)
-    perm = None
-    for j in reversed(range(0, len(cols), 2)):
-        key = (cols[j] - (1 << 31)) * (1 << 32) + cols[j + 1]
-        if perm is not None:
-            key = key[perm]
-        order = torch.sort(key, stable=True).indices
-        perm = order if perm is None else perm[order]
-    return words[:, perm], (None if payload is None else payload[perm])
-
-
 def _sweep_doubled(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
                    KW: int, packed: bool):
     """Doubled text (codes ++ revcomp) -> forward kmax-mer elements -> ONE
@@ -203,15 +188,18 @@ def occurrence_histograms_sweep_packed(
     over packed (codes, gids) tensors (see occurrence.pack_members); runs
     on their device.
 
-    Runs the plan of plan_sweep.  Grids it sends to the per-k path (a
-    class with < 3 ks, or > 64 members) raise NotImplementedError."""
+    Runs the plan of plan_sweep; the ks it leaves over (a class with < 3
+    ks, or every k of a group over the 64-member mask) take the per-k
+    fused path, one sort per k (occurrence.occurrence_histogram_packed),
+    as the JAX package's sweep does."""
     codes, gids = packed
     classes, remaining = plan_sweep(ks, n_members)
-    if remaining:
-        raise NotImplementedError(
-            f"ks {remaining} with {n_members} members need the per-k fused "
-            "occurrence path, which is not yet ported (ROADMAP.md queue 1 "
-            "item 4); run them with `python -m khoice_tpu`"
+    if n_members > MASK_MEMBERS and len(remaining) >= 3:
+        log.warning(
+            "shared-sort sweep disabled: %d members > %d (scan mask width); "
+            "falling back to %d per-k fused sorts — expect ~%dx the sweep's "
+            "sort volume for this group",
+            n_members, MASK_MEMBERS, len(remaining), len(remaining),
         )
     out: Dict[int, List[int]] = {}
     for kmax, KW, cks, pay_packed in classes:
@@ -222,6 +210,8 @@ def occurrence_histograms_sweep_packed(
         top = min(n_members, cx)
         for i, k in enumerate(cks):
             out[k] = hists[i][:top] + [0] * (cx - top)
+    for k in remaining:
+        out[k] = occurrence_histogram_packed(packed, n_members, k, cs=cs, cx=cx)
     return out
 
 

@@ -16,7 +16,10 @@ XLA memory envelope (`_xla_scan_too_big`) with their all-ks fallback to
 the per-k path, and the Pallas buckets' cap <= 511.  Instead each sweep's
 device bytes are checked before it runs (engine/streaming.py).  The mask
 limit is the kernel's 64 members; the JAX package sends 33 to 64 members
-to its per-k path, which gives the same counts.
+to its per-k path, which gives the same counts.  The ks the plan leaves
+over (a class of < 3 ks, every k of a set over 64 members) come back as
+each sweep's second value, for the drivers' per-k table ops
+(pipelines/exp2.py, exp3.py, exp4.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,34 +32,31 @@ import torch
 from ..kernels.ksweep_scan import scan_classify
 from .ksweep import _sweep_doubled, plan_sweep
 from .occurrence import pack_members
-from .streaming import check_incore_budget, default_device_budget_bytes
+from .streaming import check_device_budget, default_device_budget_bytes, incore_sweep_bytes
 
 
 def _run_classes(member_codes: Sequence[np.ndarray], ks: Sequence[int], mode: str,
                  mode_params, device,
-                 device_budget_bytes: int | None = None) -> Dict[int, np.ndarray]:
+                 device_budget_bytes: int | None = None
+                 ) -> Tuple[Dict[int, np.ndarray], List[int]]:
     """Shared driver: pack the members once, sort ONCE per planned class
-    and run ONE scan over the class's ks.  Returns {k: canonical stats,
-    int64 [bins]} for every k of the grid.
+    and run ONE scan over the class's ks.  Returns ({k: canonical stats,
+    int64 [bins]} for the swept ks, the ks plan_sweep leaves to the per-k
+    path).
 
-    Raises NotImplementedError for ks that plan_sweep sends to the per-k
-    path, and DeviceBudgetExceeded when a class sort would not fit
+    Raises DeviceBudgetExceeded when a class sort would not fit
     `device_budget_bytes` (default ~85% of the device,
     engine/streaming.py)."""
     device = torch.device(device)
     n_members = len(member_codes)
     classes, remaining = plan_sweep(ks, n_members)
-    if remaining:
-        raise NotImplementedError(
-            f"ks {remaining} with {n_members} members need the per-k path and the "
-            "table ops, which are not yet ported (ROADMAP.md queue 1 items 4 and "
-            "6); run them with `python -m khoice_tpu`"
-        )
+    out: Dict[int, np.ndarray] = {}
+    if not classes:
+        return out, remaining
     total = sum(int(c.shape[0]) + 1 for c in member_codes)
     budget = device_budget_bytes or default_device_budget_bytes(device)
-    check_incore_budget(total, ks, n_members, budget, f"{mode} sweep")
+    check_device_budget(incore_sweep_bytes(total, ks, n_members), budget, f"{mode} sweep")
     codes, gids = pack_members(member_codes, device)
-    out: Dict[int, np.ndarray] = {}
     for kmax, KW, cks, packed in classes:
         skeys, spay = _sweep_doubled(codes, gids, kmax, KW, packed)
         raw = scan_classify(skeys, spay, cks, mode, mode_params, packed)
@@ -64,7 +64,7 @@ def _run_classes(member_codes: Sequence[np.ndarray], ks: Sequence[int], mode: st
         canon = ((raw[0] + raw[1]) // 2).cpu().numpy()
         for i, k in enumerate(cks):
             out[k] = canon[i]
-    return out
+    return out, remaining
 
 
 def pivot_rest_counts_sweep(
@@ -72,15 +72,15 @@ def pivot_rest_counts_sweep(
     device="cuda", device_budget_bytes: int | None = None,
 ) -> Tuple[Dict[int, np.ndarray], List[int]]:
     """{k: (n_rest+1,) counts} for member 0 = pivot vs the rest members:
-    [j] = canonical classes in the pivot and in exactly j rest members.
-    The second value, the ks left to a per-k path, is always empty."""
+    [j] = canonical classes in the pivot and in exactly j rest members;
+    and the ks left to the per-k path."""
     n_rest = len(member_codes) - 1
     # the sweep's counts are exact (uncapped): with <= 64 members every
     # count is <= n_members, so KMC's `-cs` union cap is unreachable as
     # long as cs >= n_members
     assert cs >= len(member_codes), "sweep ignores cs below the member count"
     return _run_classes(member_codes, ks, "pivot_rest", n_rest, device,
-                        device_budget_bytes), []
+                        device_budget_bytes)
 
 
 def multi_pivot_counts_sweep(
@@ -90,9 +90,9 @@ def multi_pivot_counts_sweep(
     """{k: (D, D) counts}: members 0..D-1 pivots, D..2D-1 group sets;
     [num, j] = classes in pivot num and in exactly j OTHER groups."""
     assert cs >= len(member_codes), "sweep ignores cs below the member count"
-    out = _run_classes(member_codes, ks, "multi_pivot", D, device,
-                       device_budget_bytes)
-    return {k: v.reshape(D, D) for k, v in out.items()}, []
+    out, remaining = _run_classes(member_codes, ks, "multi_pivot", D, device,
+                                  device_budget_bytes)
+    return {k: v.reshape(D, D) for k, v in out.items()}, remaining
 
 
 def containment_counts_sweep(
@@ -102,9 +102,9 @@ def containment_counts_sweep(
     """{k: (nq, ng+1) counts}: members 0..nq-1 query sets, then ng groups;
     [q, 0] = classes in query q, [q, 1+g] = classes in query q and group g."""
     assert cs >= len(member_codes), "sweep ignores cs below the member count"
-    out = _run_classes(member_codes, ks, "containment", (nq, ng), device,
-                       device_budget_bytes)
-    return {k: v.reshape(nq, ng + 1) for k, v in out.items()}, []
+    out, remaining = _run_classes(member_codes, ks, "containment", (nq, ng), device,
+                                  device_budget_bytes)
+    return {k: v.reshape(nq, ng + 1) for k, v in out.items()}, remaining
 
 
 def feature_buckets_sweep(
@@ -116,7 +116,7 @@ def feature_buckets_sweep(
     buckets[d, m-1] = saturated pivot counts of classes in group d matching
     m groups, unique = those matching none."""
     assert cs >= len(member_codes), "sweep ignores cs below the member count"
-    out = _run_classes(member_codes, ks, "buckets", (D, cap), device,
-                       device_budget_bytes)
+    out, remaining = _run_classes(member_codes, ks, "buckets", (D, cap), device,
+                                  device_budget_bytes)
     return {k: (v[:D * D].reshape(D, D).astype(np.int64), int(v[D * D]))
-            for k, v in out.items()}, []
+            for k, v in out.items()}, remaining

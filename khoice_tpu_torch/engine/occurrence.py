@@ -1,27 +1,44 @@
-"""Member packing for the occurrence sweeps (port of the packing part of
+"""Member packing and the per-k fused occurrence path (port of
 khoice_tpu/engine/occurrence.py).
 
-A group's members are concatenated with one separator code (4) after
-each member, and every position carries its member's gid.  The JAX
+Packing.  A group's members are concatenated with one separator code (4)
+after each member, and every position carries its member's gid.  The JAX
 package pads the result to a geometric shape bucket (`_padded_len`) to
 bound XLA recompiles; eager PyTorch has no recompiles, and the padding
-positions are invalid (code 4) so they change no histogram — the port
+positions are invalid (code 4) so they change no histogram: the port
 leaves it out.
+
+The per-k fused path.  What exp1 computes per (k, group) is "how many
+distinct members contain each canonical k-mer": ONE sort of (canonical
+key, gid) pairs, after which a key's run holds its (key, gid) sub-runs
+and occ = the number of sub-run starts.  Two layouts, as in the JAX
+package:
+  * gid-packed (n_members <= 256, k <= 60): value = (key << 8) | gid over
+    occ_words_static(k) words, so ordering by value is ordering by
+    (key, gid) with the fewest sort words; the kernels are the extraction
+    in its packed form (kernels/extract.py) and the occurrence histogram
+    in its packed layout (kernels/occ_scan.py);
+  * otherwise key_words(k) key words plus a separate gid.
+The JAX package traces k as a runtime scalar and pads words to kmax
+classes (kmax_class_packed) so that one XLA compile serves a word class;
+the port takes k as a plain int and the exact width occ_words_static(k),
+which changes no histogram.  This is exp1's path for groups of more than
+64 members and for ks of small grids (engine/ksweep.py::plan_sweep), and
+occurrence_table is the group union of exp2's per-k fallback.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
-GID_BITS = 8  # gid bits of the per-k fused path's (key << GID_BITS | gid)
-
-
-def occ_words_static(k: int) -> int:
-    """uint32 words for (key << GID_BITS | gid) at a static k."""
-    return (2 * k + GID_BITS + 31) // 32
+from ..kernels.extract import GID_BITS, PACK_KMAX, extract_canonical, extract_packed
+from ..kernels.occ_scan import occ_hist, occ_hist_packed, run_occurrences
+from .bits import SENTINEL, key_words, words_is_sentinel, words_select
+from .sort import sort_words
+from .table import KmerTable
 
 
 def _member_layout(member_codes: Sequence[np.ndarray]):
@@ -47,3 +64,74 @@ def pack_members(member_codes: Sequence[np.ndarray], device):
         torch.arange(len(member_codes), dtype=torch.int64, device=device), lengths
     )
     return torch.from_numpy(codes).to(device), gids
+
+
+def gid_packable(n_members: int, k: int) -> bool:
+    """The gid-packed layout holds the pair: gids < 2^GID_BITS, k <= 60."""
+    return n_members <= (1 << GID_BITS) and k <= PACK_KMAX
+
+
+def unpack_keys_static(sp: torch.Tensor, k: int) -> torch.Tensor:
+    """key_words(k)-layout keys from sorted packed words: key = packed >>
+    GID_BITS, and the SENTINEL where the packed value is all ones."""
+    ow = sp.shape[0]
+    wk = key_words(k)
+    shifted = sp >> GID_BITS
+    shifted[1:] |= (sp[:-1] << (32 - GID_BITS)) & 0xFFFFFFFF
+    if wk >= ow:
+        keys = torch.cat([sp.new_zeros(wk - ow, sp.shape[1]), shifted])
+    else:
+        keys = shifted[ow - wk:]  # the leading words are zero
+    return words_select(words_is_sentinel(sp), SENTINEL, keys)
+
+
+def _sorted_pairs(codes: torch.Tensor, gids: torch.Tensor, k: int, packed: bool):
+    """The per-k fused sort: (sorted words, sorted gid or None).  packed:
+    int64 [occ_words_static(k), n] of (key << 8) | gid; else key words
+    sorted by (key, gid) with the gid (0xFFFFFFFF where invalid) apart."""
+    if packed:
+        return sort_words(extract_packed(codes, gids, k))[0], None
+    keys, valid = extract_canonical(codes, k)
+    gid = torch.where(valid, gids, 0xFFFFFFFF)
+    s, _ = sort_words(torch.cat([keys, gid[None]]))
+    return s[:-1], s[-1]
+
+
+def occurrence_histogram_packed(packed, n_members: int, k: int, cs: int = 5000,
+                                cx: int = 10000) -> List[int]:
+    """hist[i-1] = number of distinct canonical k-mers present in exactly i
+    members (capped at cs), a list of cx ints, over packed (codes, gids)
+    tensors (pack_members); runs on their device."""
+    codes, gids = packed
+    n_bins = min(n_members, cx)
+    if gid_packable(n_members, k):
+        sp, _ = _sorted_pairs(codes, gids, k, True)
+        small = occ_hist_packed(sp, n_bins, cs)
+    else:
+        keys, gid = _sorted_pairs(codes, gids, k, False)
+        small = occ_hist(keys, gid, n_bins, cs)
+    return small.tolist() + [0] * (cx - n_bins)
+
+
+def occurrence_histogram(member_codes: Sequence[np.ndarray], k: int, device,
+                         cs: int = 5000, cx: int = 10000) -> List[int]:
+    """occurrence_histogram_packed over raw member code arrays."""
+    return occurrence_histogram_packed(pack_members(member_codes, device),
+                                       len(member_codes), k, cs=cs, cx=cx)
+
+
+def occurrence_table(member_codes: Sequence[np.ndarray], k: int, device,
+                     cs: int = 5000) -> KmerTable:
+    """KmerTable whose counts are the number of members containing each
+    key (capped at cs): `set_counts 1` + the n-way `kmc_tools complex`
+    union in ONE sort (reference exp_type_1.smk:165-182,
+    exp_type_2.smk:440-454)."""
+    codes, gids = pack_members(member_codes, device)
+    packed = gid_packable(len(member_codes), k)
+    words, gid = _sorted_pairs(codes, gids, k, packed)
+    starts, occ = run_occurrences(words, gid, cs)
+    keys = words[:, starts]
+    if packed:
+        keys = unpack_keys_static(keys, k)
+    keep = occ > 0
+    return KmerTable(keys=keys[:, keep].contiguous(), counts=occ[keep], k=k)

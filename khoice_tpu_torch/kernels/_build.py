@@ -1,10 +1,12 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` over every `khoice_tpu_torch/csrc/*.cu`, at first use,
-into `khoice_tpu_torch/_build/` (git-ignored), keyed by a hash of the
-sources and flags so an edit rebuilds and an unchanged tree reuses the
-library.  The sources expose a plain C interface, bound with ctypes.
+At first use, one `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
+-O3 -Xcompiler -fPIC -c` per `khoice_tpu_torch/csrc/*.cu`, all started
+together, then one `nvcc -shared` link, into `khoice_tpu_torch/_build/`
+(git-ignored), keyed by a hash of the sources, their shared headers
+(`csrc/*.cuh`) and the flags, so an edit rebuilds and an unchanged tree
+reuses the library.  The sources expose a
+plain C interface, bound with ctypes.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # (restype, argtypes) of every C entry point; pointers and the stream are
@@ -39,6 +41,17 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
+    ]),
+    "extract_canonical_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]),
+    "occ_scan_tile_elems": (ctypes.c_int, []),
+    "occ_scan_bins_max": (ctypes.c_int, []),
+    "occ_scan_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]),
 }
 
@@ -63,10 +76,36 @@ def _sources() -> list:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh"))):
         with open(src, "rb") as fd:
             h.update(os.path.basename(src).encode() + fd.read())
     return os.path.join(BUILD_DIR, f"libkhoice_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _compile(tmpdir: str) -> str:
+    """Compile every source to an object in parallel, link the objects;
+    returns the build log (ptxas's report for every kernel)."""
+    srcs = _sources()
+    objs = [os.path.join(tmpdir, os.path.basename(src) + ".o") for src in srcs]
+    procs = [
+        subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(srcs, objs)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(srcs, procs):
+        out = proc.communicate()[0]
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    so = os.path.join(tmpdir, "lib.so")
+    proc = subprocess.run([_nvcc(), "-shared", "-o", so, *objs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    return "".join(logs)
 
 
 @functools.cache
@@ -77,21 +116,11 @@ def load() -> ctypes.CDLL:
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                capture_output=True, text=True,
-            )
-            with open(so + ".log", "w") as log:
-                log.write(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            log = _compile(tmpdir)
+            with open(so + ".log", "w") as fd:
+                fd.write(log)
+            os.replace(os.path.join(tmpdir, "lib.so"), so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)
     for name, (restype, argtypes) in _SIGNATURES.items():

@@ -3,8 +3,10 @@ khoice_tpu/pipelines/exp1.py, its fused single-device path).
 
 Per group, the whole k grid comes from the shared-sort sweep
 (engine/ksweep.py): one doubled-text sort and one multi-k scan per
-key-word class.  The across-groups set is the same sweep over one member
-per group (the group's genomes joined with separators).  The step_4/
+key-word class.  The ks it cannot serve (a class of < 3 ks; every k of a
+group of more than 64 genomes) take the per-k fused path, one sort per k
+(engine/occurrence.py).  The across-groups set is the same sweep over one
+member per group (the group's genomes joined with separators).  The step_4/
 step_5/step_8/step_9 file layout and row order are the reference's, so
 the CSV bytes equal the JAX package's.
 """
@@ -48,7 +50,8 @@ def run_exp1(
     """groups: {group_num: [genome as list-of-record-seqs, ...]}; every
     sweep runs on `device`.
 
-    A group whose in-core sweep exceeds `device_budget_bytes` (default
+    A group whose in-core sweep or per-k sorts exceed
+    `device_budget_bytes` (default
     engine/streaming.default_device_budget_bytes) raises
     DeviceBudgetExceeded: the streaming sweep is not ported yet.
 

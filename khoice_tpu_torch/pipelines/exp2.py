@@ -10,9 +10,10 @@ OTHER dataset's group set (exp_type_2.smk:263-283).
 The whole k grid rides the shared doubled-text sort
 (engine/ksweep_classify.py): ONE sort per dataset serves every k's
 subtract/intersect histograms (within scope), and ONE sort over all
-pivots + groups serves the across scope.  The JAX package's per-k table
-ops, for grids the plan cannot serve, are not ported: such grids raise
-NotImplementedError.  Row order (dataset-major, k inner), headers and
+pivots + groups serves the across scope.  The ks the plan cannot serve
+(a class of < 3 ks; every k of a dataset over the sweep's 64-member
+mask) take the JAX package's per-k table ops over a KmerEngine
+(engine/session.py).  Row order (dataset-major, k inner), headers and
 file layout are the reference's, so the CSV bytes equal the JAX
 package's.
 """
@@ -25,6 +26,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from ..engine.ksweep_classify import multi_pivot_counts_sweep, pivot_rest_counts_sweep
+from ..engine.session import KmerEngine
 from ..io.packing import encode_records
 from ..reports.csvio import write_csv_rows, write_hist_txt
 from ..reports.metrics import summarize_histogram_type2
@@ -62,6 +64,15 @@ def _hists_from_counts(cnt: np.ndarray, cx: int):
     return sub, inter
 
 
+def _per_k_pair(eng, pivot_codes, rest_codes_list, k, union_cs, hist_cx):
+    """The per-k path: (sub_hist, inter_hist) for one (pivot, rest)."""
+    pivot_set = eng.set_counts(eng.count_codes(pivot_codes, k), 1)
+    rest_union = eng.occurrence_table(rest_codes_list, k, cs=union_cs)
+    inter = eng.intersect_sum(pivot_set, rest_union)
+    sub = eng.subtract(pivot_set, rest_union)
+    return eng.histogram(sub, cx=hist_cx), eng.histogram(inter, cx=hist_cx)
+
+
 def run_exp2(
     pivots: Dict[int, List[str]],
     rest_of_set: Dict[int, List[List[str]]],
@@ -74,8 +85,10 @@ def run_exp2(
 ) -> Dict[str, str]:
     """pivots: {num: pivot record seqs}; rest_of_set excludes the pivot
     (exp2 is always out-pivot: input_type_2 copies exp0_nonpivot_genomes).
-    Every sweep runs on `device`, within `device_budget_bytes` (default
-    ~85% of the device).  Returns {"within": csv, "across": csv}."""
+    Every sweep and per-k table op runs on `device`, within
+    `device_budget_bytes` (default ~85% of the device).  Returns
+    {"within": csv, "across": csv}."""
+    eng = KmerEngine(device, device_budget_bytes)
     nums = sorted(rest_of_set)
     D = len(nums)
 
@@ -93,13 +106,15 @@ def run_exp2(
     across: Dict[tuple, tuple] = {}
 
     # WITHIN scope: per dataset, one shared sort serves the whole grid
+    fallback_within = set()
     for num in nums:
-        counts, _ = pivot_rest_counts_sweep(
+        counts, rem = pivot_rest_counts_sweep(
             [pivot_codes[num]] + rest_codes[num], k_values, cs=union_cs, device=device,
             device_budget_bytes=device_budget_bytes,
         )
         for k, cnt in counts.items():
             within[(num, k)] = _hists_from_counts(cnt, hist_cx)
+        fallback_within.update(rem)
 
     # ACROSS scope: one combined sort over all pivots + all group texts
     # (pivot num bits 0..D-1, group bits D..2D-1; own group excluded in
@@ -107,13 +122,32 @@ def run_exp2(
     members_across = [pivot_codes[num] for num in nums] + [
         group_codes[num] for num in nums
     ]
-    counts_across, _ = multi_pivot_counts_sweep(
+    counts_across, rem_across = multi_pivot_counts_sweep(
         members_across, D, k_values, cs=union_cs, device=device,
         device_budget_bytes=device_budget_bytes,
     )
     for k, cnt in counts_across.items():
         for i, num in enumerate(nums):
             across[(num, k)] = _hists_from_counts(cnt[i], hist_cx)
+
+    # the per-k path (small grids, datasets over the mask): table ops
+    for k in sorted(fallback_within):
+        for num in nums:
+            within[(num, k)] = _per_k_pair(
+                eng, pivot_codes[num], rest_codes[num], k, union_cs, hist_cx,
+            )
+    for k in sorted(rem_across):
+        group_sets = {
+            num: eng.set_counts(eng.count_codes(group_codes[num], k), 1)
+            for num in nums
+        }
+        for num in nums:
+            pivot_set = eng.set_counts(eng.count_codes(pivot_codes[num], k), 1)
+            across_union = eng.union([group_sets[j] for j in nums if j != num], cs=union_cs)
+            across[(num, k)] = (
+                eng.histogram(eng.subtract(pivot_set, across_union), cx=hist_cx),
+                eng.histogram(eng.intersect_sum(pivot_set, across_union), cx=hist_cx),
+            )
 
     for k in k_values:
         for scope, data in (("within", within), ("across", across)):

@@ -10,8 +10,8 @@ group union is reported:
 
 rounded to 4 (reference exp_type_3.smk:281-320).  The query read sets and
 the group unions share ONE doubled-text sort for the whole k grid
-(engine/ksweep_classify.py); the JAX package's per-k table ops are not
-ported, so grids the plan cannot serve raise NotImplementedError.  Row
+(engine/ksweep_classify.py); the ks the plan cannot serve (a class of
+< 3 ks) take the JAX package's per-k table ops over a KmerEngine.  Row
 order: read_type outer, then pivot, k, dataset (exp_type_3.smk:103-113).
 """
 
@@ -23,6 +23,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from ..engine.ksweep_classify import containment_counts_sweep
+from ..engine.session import KmerEngine
 from ..io.packing import encode_records
 from ..reports.csvio import write_csv_rows
 from ..sim.reads import sim_illumina, sim_ont, subset_reads_kmers
@@ -60,8 +61,10 @@ def run_exp3(
 ) -> str:
     """reads: {(read_type, pivot_num): [read strings]} (see
     simulate_exp3_reads); rest_of_set excludes each pivot (out-pivot).
-    The sweep runs on `device`, within `device_budget_bytes` (default ~85%
-    of the device).  Returns the CSV path."""
+    The sweep and the per-k table ops run on `device`, within
+    `device_budget_bytes` (default ~85% of the device).  Returns the CSV
+    path."""
+    eng = KmerEngine(device, device_budget_bytes)
     nums = sorted(rest_of_set)
     read_types = sorted({rt for rt, _ in reads}, key=lambda r: ("illumina", "ont").index(r))
 
@@ -72,7 +75,7 @@ def run_exp3(
     member_codes = [encode_records(reads[q]) for q in qkeys] + [
         encode_records([s for g in rest_of_set[num] for s in g]) for num in nums
     ]
-    counts, _ = containment_counts_sweep(
+    counts, fallback_ks = containment_counts_sweep(
         member_codes, len(qkeys), len(nums), k_values, cs=union_cs, device=device,
         device_budget_bytes=device_budget_bytes,
     )
@@ -86,6 +89,22 @@ def run_exp3(
                 results[(read_type, pivot_num, k, num)] = round(
                     int(cnt[qi, 1 + gi]) / n_pivot, 4
                 )
+
+    for k in sorted(fallback_ks):
+        unions = {
+            num: eng.union([eng.set_counts(eng.count_codes(encode_records(g), k), 1)
+                            for g in rest_of_set[num]], cs=union_cs)
+            for num in nums
+        }
+        for read_type, pivot_num in qkeys:
+            pivot_set = eng.set_counts(
+                eng.count_codes(encode_records(reads[(read_type, pivot_num)]), k), 1
+            )
+            n_pivot = eng.n_present(pivot_set)
+            assert n_pivot > 0, "empty pivot read k-mer set"
+            for num in nums:
+                n_inter = eng.n_present(eng.intersect_sum(pivot_set, unions[num]))
+                results[(read_type, pivot_num, k, num)] = round(n_inter / n_pivot, 4)
 
     rows = [
         [read_type, str(pivot_num), str(k), str(num), results[(read_type, pivot_num, k, num)]]

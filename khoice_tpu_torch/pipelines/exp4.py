@@ -10,9 +10,10 @@ its own rest_of_set).
 
 Per pivot, ONE doubled-text sort serves every k's feature buckets (the
 pivot multiplicities ride the presence-mask scan as a segmented sum,
-engine/ksweep_classify.py).  The JAX package's per-(pivot, k) annotation
-fallback served only TPU memory and is not ported: every k of the plan
-is swept, or the run raises.
+engine/ksweep_classify.py).  The ks the plan cannot serve (a class of
+< 3 ks) take the JAX package's per-(pivot, k) annotation: the pivot's
+count table annotated against every dataset's group set in one sort
+(classify/annotate.py), over a KmerEngine.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Sequence
 
+from ..classify.annotate import build_annotation, feature_buckets
 from ..classify.confusion import (
     accuracy_values,
     feature_confusion_rows,
@@ -27,6 +29,7 @@ from ..classify.confusion import (
     write_confusion_matrix,
 )
 from ..engine.ksweep_classify import feature_buckets_sweep
+from ..engine.session import KmerEngine
 from ..io.packing import encode_records
 
 
@@ -53,6 +56,7 @@ def run_exp4(
 
     Writes accuracies_type_4/{confusion_matrix,values}/ and the
     concatenated accuracy_values.csv; returns the concatenated path."""
+    eng = KmerEngine(device, device_budget_bytes)
     nums = sorted(rest_of_set)
     d = len(nums)
     acc_dir = os.path.join(out_dir, "accuracies_type_4")
@@ -69,6 +73,14 @@ def run_exp4(
         )
 
     for k in k_values:
+        if k not in swept[nums[0]]:  # the per-k path: every pivot's plan is the same
+            # a group set (set_counts 1 of the member union) is the k-mer set
+            # of the concatenated members (exp_type_4.smk:180-213 role)
+            group_sets = [eng.set_counts(eng.count_codes(c, k, cs=count_cs), 1)
+                          for c in group_codes]
+            for num in nums:
+                pivot_table = eng.count_codes(pivot_codes[num], k, cs=count_cs)
+                swept[num][k] = feature_buckets(build_annotation(pivot_table, group_sets))
         cm, cm_ucol = [], []
         for num in nums:
             buckets, unique = swept[num][k]

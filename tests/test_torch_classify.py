@@ -151,11 +151,14 @@ def test_wide_containment_sweep_vs_oracle(rng):
 
 
 def test_sweep_per_k_path_budget_and_bad_modes_raise(rng, monkeypatch):
+    """The ks a sweep leaves to the per-k path come back as its second
+    value, as the JAX package's do; budgets and bad modes raise."""
     members = [encode_records([random_dna(rng, 80)]) for _ in range(3)]
-    with pytest.raises(NotImplementedError, match="items 4 and 6"):
-        tkc.pivot_rest_counts_sweep(members, (11, 21), device="cpu")  # < 3 ks
-    with pytest.raises(NotImplementedError, match="items 4 and 6"):
-        tkc.containment_counts_sweep(members * 22, 33, 33, (7, 8, 9), cs=5000, device="cpu")
+    assert tkc.pivot_rest_counts_sweep(members, (11, 21), device="cpu") == ({}, [11, 21])
+    assert (tkc.containment_counts_sweep(members * 22, 33, 33, (7, 8, 9), cs=5000,
+                                         device="cpu") == ({}, [7, 8, 9]))
+    got, rem = tkc.multi_pivot_counts_sweep(members[:2] * 2, 2, (7, 8, 9, 40), device="cpu")
+    assert rem == [40] and sorted(got) == [7, 8, 9]
     monkeypatch.setattr(tkc, "default_device_budget_bytes", lambda device: 1000)
     with pytest.raises(DeviceBudgetExceeded):
         tkc.multi_pivot_counts_sweep(members[:2], 1, (7, 8, 9), device="cpu")

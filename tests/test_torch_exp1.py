@@ -88,7 +88,8 @@ def test_cli_without_cuda_fails_loudly(rng, tmp_path):
 
 def test_port_never_imports_jax(rng, tmp_path):
     """Walking every module of the port and running exp 0/1/2/3/4 on the
-    CPU imports neither jax nor anything of the JAX package."""
+    CPU, and exp 1/2 again on a 2-k grid (the per-k path), imports
+    neither jax nor anything of the JAX package."""
     db = tmp_path / "db"
     _write_db(str(db), rng, glen=3000)  # long enough for exp0's ONT reads
     code = (
@@ -100,6 +101,10 @@ def test_port_never_imports_jax(rng, tmp_path):
         "for t in ('0', '1', '2', '3', '4'):\n"
         f"    assert main(['run', '--exp-type', t, '--device', 'cpu', '--database-root', {str(db)!r},\n"
         f"                 '--work-root', {str(tmp_path / 'work')!r}, '--k-values', '7,9,12',\n"
+        "                 '--kmers-per-dataset', '1000']) == 0\n"
+        "for t in ('1', '2'):\n"
+        f"    assert main(['run', '--exp-type', t, '--device', 'cpu', '--database-root', {str(db)!r},\n"
+        f"                 '--work-root', {str(tmp_path / 'perk')!r}, '--k-values', '11,31',\n"
         "                 '--kmers-per-dataset', '1000']) == 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -117,3 +122,6 @@ def test_port_never_imports_jax(rng, tmp_path):
     assert (work / "across_dataset_analysis_type_2/across_dataset_analysis.csv").exists()
     assert (work / "final_analysis_type3/final_analysis_type3.csv").exists()
     assert (work / "accuracies_type_4/accuracy_values.csv").exists()
+    perk = tmp_path / "perk"
+    assert (perk / "step_9/across_datasets_analysis.csv").exists()
+    assert (perk / "within_dataset_analysis_type_2/within_dataset_analysis.csv").exists()

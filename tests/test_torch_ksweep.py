@@ -173,12 +173,14 @@ def test_pack_members_matches_jax_prefix(nprng):
 
 
 def test_per_k_path_and_budget_raise(nprng):
+    """Grids the plan leaves to the per-k path (< 3 ks, > 64 members) run
+    it, equal to the JAX package's sweep; a group over budget raises."""
     members = [_dna(nprng, 100) for _ in range(3)]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tks.occurrence_histograms_sweep(members, [11, 21], "cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tks.occurrence_histograms_sweep([_dna(nprng, 30) for _ in range(65)],
-                                        [7, 9, 11], "cpu")
+    assert (tks.occurrence_histograms_sweep(members, [11, 21], "cpu", cx=8)
+            == jks.occurrence_histograms_sweep(members, [11, 21], cx=8))
+    wide = [_dna(nprng, 30) for _ in range(65)]
+    assert (tks.occurrence_histograms_sweep(wide, [7, 9, 11], "cpu", cx=70)
+            == jks.occurrence_histograms_sweep(wide, [7, 9, 11], cx=70))
     need = incore_sweep_bytes(1000, K_GRID, 3)
     assert need == 2 * 1000 * 8 * (2 * 4 + 6)  # one packed KW=4 class
     check_incore_budget(1000, K_GRID, 3, need, "g")
