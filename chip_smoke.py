@@ -10,6 +10,16 @@ Phases (any failure raises, so the exit code is non-zero):
   3. kernels vs plain: each kernel and its plain PyTorch version on the
      same inputs on the card, exactly equal, timed in turns (plain,
      kernel, kernel, plain):
+     - first the radix sort, since the later kernels' inputs are sorted by
+       it: keys and payload bit-equal on the bench class (8 x 2^21 bases,
+       33.6M doubled elements, 4 packed words), the unpacked 2-word class
+       (kmax 30) with its payload, the per-k packed words of 96 x 2^20 at
+       k = 31 and 49 (3 and 4 words), a table merge (2 words, 2^24 keys,
+       most present twice, an arange payload: stability), and edge cases
+       (n 0, 1, a tile +- 1, all keys equal, 1 and 5 words, half the keys
+       SENTINEL); `torch.sort(stable=True)` of the folded key plus the
+       gathers is timed beside it where one call computes the same
+       function (1-2 words);
      - the scan kernel in each mode on a sorted doubled text: occ at
        exp1's shapes (8 x 2^21-base members on the 30-point grid; 64
        members; an unpacked class), the classification modes at the same
@@ -30,14 +40,25 @@ Phases (any failure raises, so the exit code is non-zero):
      b. on a generated 2 datasets x 96 genomes x 1 Mbp database (groups
         over the sweep's 64-member mask): `run --exp-type 1` on the full
         grid and `run --exp-type 2` in its own work root.
+     c. the streaming sweep: `run --exp-type 1 --force` on 4b's database
+        with `--device-budget-gb 12` (the 386.8M-element across set
+        streams, the per-k within-group sorts fit) and on 4a's with 4
+        (the 128.1M-element across set streams, the groups run in-core);
+        the CSVs must equal 4a's and 4b's in-core bytes, the peak device
+        memory must stay within the budget, and the stream's log lines
+        (chunks, key-range groups, passes, retries) are printed.
      Every launch counter is set to 0 just before each run and read just
-     after; the kernels a run uses must have launched, and its CSVs must
-     have the expected lines.  Each kernel call is timed (CUDA events) and
-     held against its plain version on the same inputs, exactly, after
-     its timed span: every scan call of 4a, and in 4b every extraction and
-     histogram call at the ks where a word count changes (HOLD_KS); 4b's
-     scan calls (388M elements) are timed only.  Wall, peak device
-     memory and each kernel's calls are printed.
+     after; the kernels a run uses must have launched (the sort on every
+     run), and its CSVs must have the expected lines.  Each kernel call is
+     timed (CUDA events) and held against its plain version on the same
+     inputs, exactly, after its timed span: every scan call of 4a, the
+     first SORT_HOLDS sorts of each 4a/4b run, in 4b every extraction
+     and histogram call at the ks where a word count changes (HOLD_KS),
+     and in each 4c run the first STREAM_HOLDS chunk sorts, the first
+     key-range group's sort and its raw scan; 4b's scan calls (388M
+     elements) are timed only.  Wall, peak device memory and each
+     kernel's calls are printed, and each run's sort launches; the
+     kernels line reports the sort's from one run, SORT_RUN.
   5. small worlds, against a dict-based canonical k-mer counter written
      here: the step_4/step_8 histograms that `run_exp1` writes on the card
      for 2 groups x 3 genomes, then for a group of 70 genomes and one of
@@ -67,6 +88,9 @@ HOLD_KS = (12, 13, 15, 16, 28, 29, 30, 34, 43, 46)  # every change of a word cou
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
 SCAN_REPLACES = "khoice_tpu/kernels/ksweep_scan_pallas.py"
 SCAN_SOURCE = "khoice_tpu_torch/csrc/ksweep_scan.cu"
+SORT_HOLDS = 3  # sorts of each 4a/4b run held against the plain sort
+STREAM_HOLDS = 2  # chunk sorts of each 4c run held against the plain sort
+SORT_RUN = "exp1 streamed on 2 x 96 x 1 Mbp"  # the run whose sort launches are reported
 MODES = ("pivot_rest", "multi_pivot", "containment", "buckets")
 
 
@@ -103,7 +127,7 @@ def build():
     name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
         m = re.search(r"entry function '.*?((?:occ_)?(?:tile_summaries|tile_carries|count_runs)"
-                      r"|extract_kernel)", line)
+                      r"|extract_kernel|(?:prepare|count|scan|scatter|finish)_kernel)", line)
         if m:
             name = m.group(1)
         elif name and "spill stores" in line:
@@ -154,7 +178,11 @@ def io_bound_ms(args, out):
 
 
 def max_err(got, want):
-    """Largest absolute difference of two results (tensors or tuples)."""
+    """Largest absolute difference of two results (tensors, None or tuples)."""
+    if got is None or want is None:
+        if got is not None or want is not None:
+            raise AssertionError("one result is None, the other is not")
+        return 0
     if isinstance(got, tuple):
         return max(max_err(g, w) for g, w in zip(got, want))
     if got.shape != want.shape:
@@ -185,6 +213,115 @@ def compare(label, kern, plain, args, plain_reps=2, kern_reps=10):
             "bound_ms": bound}
 
 
+def library_sort(words, payload):
+    """One `torch.sort(stable=True)` of the folded int64 key plus the
+    gathers: the radix sort's function for 1-2 words (timed only; the
+    port never calls it)."""
+    key = words[0] if words.shape[0] == 1 else (words[0] - (1 << 31)) * (1 << 32) + words[1]
+    perm = torch.sort(key, stable=True).indices
+    return words[:, perm], (None if payload is None else payload[perm])
+
+
+def varying_digits(words):
+    """The byte digits of int64 [W, n] words that take more than one
+    value: the radix sort's passes (it skips the others)."""
+    n = 0
+    for b in range(4):
+        d = (words >> (8 * b)) & 255
+        n += int((d.amin(1) != d.amax(1)).sum())
+    return n
+
+
+def sort_vs_plain(label, words, payload, timed=True, plain_reps=2):
+    """The radix sort vs the plain sort on the same inputs, keys and
+    payload bit-equal; timed in turns, with the library call beside it
+    where one computes the same function.  Bound: one read and one write
+    of the int64 rows and payload."""
+    from khoice_tpu_torch.kernels import sort as ksort
+
+    W, n = words.shape
+    got, want = ksort.sort_words(words, payload), ksort.sort_words_reference(words, payload)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if err:
+        raise AssertionError(f"sort {label}: kernel != plain (max_abs_err {err})")
+    if not timed:
+        print(f"sort {label} W={W} n={n}{' + payload' if payload is not None else ''}: "
+              f"equal (max_abs_err {err})", flush=True)
+        return {"max_abs_err": err}
+    kern = lambda: ksort.sort_words(words, payload)  # noqa: E731
+    plain = lambda: ksort.sort_words_reference(words, payload)  # noqa: E731
+    p1 = time_ms(plain, plain_reps)
+    k1 = time_ms(kern, 10)
+    k2 = time_ms(kern, 10)
+    p2 = time_ms(plain, plain_reps)
+    lib = None
+    if W <= 2:
+        if max_err(library_sort(words, payload), want):
+            raise AssertionError(f"sort {label}: the library call computes another function")
+        lib = time_ms(lambda: library_sort(words, payload), 10)
+    bound = io_bound_ms((words, payload), got)
+    print(f"sort {label} W={W} n={n}{' + payload' if payload is not None else ''}: equal "
+          f"(max_abs_err {err}); {varying_digits(words)} varying digits of {4 * W}; "
+          f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, "
+          f"library {'%.3f ms' % lib if lib is not None else 'none'}, bound {bound:.3f} ms "
+          "(bytes)", flush=True)
+    return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": bound, "library_ms": lib}
+
+
+def sort_kernel_vs_plain(bench, members96):
+    """The radix sort at the main paths' shapes and at the edge cases;
+    returns the kernels line's record (the unpacked 2-word class, where
+    the library call computes the same function) with the largest
+    difference over every case."""
+    from khoice_tpu_torch.engine.ksweep import _doubled_elements
+    from khoice_tpu_torch.engine.occurrence import pack_members
+    from khoice_tpu_torch.kernels import _build, extract
+
+    dev = torch.device("cuda")
+    errs = []
+    codes, gids = pack_members(bench, dev)
+    words, _ = _doubled_elements(codes, gids, 49, 4, True)
+    errs.append(sort_vs_plain("bench class 8x2^21 (kmax 49, packed)", words, None)["max_abs_err"])
+    del words
+    words, pay = _doubled_elements(codes, gids, 30, 2, False)
+    record = sort_vs_plain("unpacked class 8x2^21 (kmax 30)", words, pay)
+    del words, pay, codes, gids
+    codes, gids = pack_members(members96, dev)
+    for k in (31, 49):
+        words = extract.extract_packed(codes, gids, k)
+        errs.append(sort_vs_plain(f"per-k packed 96x2^20 k={k}", words, None,
+                                  plain_reps=1)["max_abs_err"])
+        del words
+    del codes, gids
+    rng = np.random.default_rng(3)
+
+    def rand(W, n, high=2**32):
+        return torch.from_numpy(rng.integers(0, high, (W, n), dtype=np.int64)).to(dev)
+
+    # a table merge: two tables' unique keys, most of b's also in a, with
+    # the arange payload that tells a's copy from b's (stability)
+    a = rand(2, 1 << 23)
+    b = a[:, torch.from_numpy(rng.permutation(1 << 23)).to(dev)]
+    b[:, : 1 << 20] = rand(2, 1 << 20)
+    errs.append(sort_vs_plain("table merge 2^24 keys", torch.cat([a, b], 1),
+                              torch.arange(1 << 24, device=dev))["max_abs_err"])
+    del a, b
+    tile = _build.load().radix_sort_tile_elems()
+    half = rand(4, 1 << 20)
+    half[:, torch.from_numpy(rng.permutation(1 << 20)[: 1 << 19]).to(dev)] = 0xFFFFFFFF
+    for label, words in (("n 0", rand(4, 0)), ("n 1", rand(4, 1)), ("tile - 1", rand(4, tile - 1)),
+                         ("tile + 1", rand(3, tile + 1)),
+                         ("all keys equal", rand(4, 1).expand(4, 1 << 20).contiguous()),
+                         ("W 1, heavy ties", rand(1, 1 << 20, high=5000)),
+                         ("W 5", rand(5, 1 << 20)), ("half SENTINEL", half)):
+        errs.append(sort_vs_plain(label, words, torch.arange(words.shape[1], device=dev),
+                                  timed=False)["max_abs_err"])
+    record["max_abs_err"] = max([record["max_abs_err"]] + errs)
+    return record
+
+
 def scan_vs_plain(label, members, ks, mode="occ", mode_params=None, plain_reps=2):
     from khoice_tpu_torch.engine.ksweep import _sweep_doubled, plan_sweep
     from khoice_tpu_torch.engine.occurrence import pack_members
@@ -211,7 +348,7 @@ def scan_vs_plain(label, members, ks, mode="occ", mode_params=None, plain_reps=2
                    args, plain_reps)
 
 
-def perk_kernels_vs_plain(rng):
+def perk_kernels_vs_plain(rng, members96):
     """Kernels A, B and C against their plain versions at phase 3's shapes."""
     from khoice_tpu_torch.engine.occurrence import _sorted_pairs, pack_members
     from khoice_tpu_torch.kernels import extract, occ_scan
@@ -236,9 +373,7 @@ def perk_kernels_vs_plain(rng):
     results["A"]["max_abs_err"] = max(errs)
     del codes, gids
 
-    members = random_members(rng, 96, 1 << 20)
-    members[0] = np.concatenate([members[0], np.zeros(100_000, np.uint8)])  # poly-A
-    codes, gids = pack_members(members, dev)
+    codes, gids = pack_members(members96, dev)
     errs = []
     for k in (31, 49):
         words, _ = _sorted_pairs(codes, gids, k, True)
@@ -265,11 +400,14 @@ def kernels_vs_plain():
     phase("3 kernels vs plain")
     rng = np.random.default_rng(0)
     bench = random_members(rng, 8, 1 << 21)
+    members96 = random_members(rng, 96, 1 << 20)
+    members96[0] = np.concatenate([members96[0], np.zeros(100_000, np.uint8)])  # poly-A
+    sort = sort_kernel_vs_plain(bench, members96)
     occ = scan_vs_plain("bench 8x2^21 grid30", bench, K_GRID)
     wide = scan_vs_plain("64x2^16 grid30", random_members(rng, 64, 1 << 16), K_GRID)
     unpacked = scan_vs_plain("bench 8x2^21 ks11..31", bench, list(range(11, 32)))
     occ["max_abs_err"] = max(r["max_abs_err"] for r in (occ, wide, unpacked))
-    results = {"occ": occ}
+    results = {"occ": occ, "sort": sort}
     results["pivot_rest"] = scan_vs_plain("bench 1+7 members", bench, K_GRID, "pivot_rest", 7)
     results["multi_pivot"] = scan_vs_plain("bench D=4", bench, K_GRID, "multi_pivot", 4)
     groups = random_members(rng, 4, 1 << 21)
@@ -285,17 +423,18 @@ def kernels_vs_plain():
     results["containment"]["max_abs_err"] = max(results["containment"]["max_abs_err"],
                                                  wide_c["max_abs_err"])
     del bench, groups, pivot
-    results.update(perk_kernels_vs_plain(rng))
+    results.update(perk_kernels_vs_plain(rng, members96))
     return results
 
 
 class Held:
     """Wraps kernel wrappers that the engine imported by name: times every
     call (CUDA events around it, read after the run's last synchronize)
-    and, after the call's timed span, holds the calls `hold(kernel, k)`
-    picks against the plain version on the same inputs, exactly.  A
+    and, after the call's timed span, holds the calls `hold(kernel, k,
+    nth)` picks against the plain version on the same inputs, exactly.  A
     call's k is its extraction's, or the last extraction's for the
-    histogram that follows it.  `errors` gets each kernel's largest
+    histogram that follows it; nth counts the kernel's earlier calls in
+    the run.  `errors` gets each kernel's largest
     difference, `plain_s` the seconds the checks took; `peak()` is the
     run's peak device memory without the plain versions' own."""
 
@@ -303,6 +442,7 @@ class Held:
         self.specs = specs  # (module, name, kernel label, plain or None)
         self.hold = hold
         self.calls = []
+        self.n_calls = {}
         self.errors = {}
         self.k = None
         self.peak_before = 0
@@ -318,7 +458,9 @@ class Held:
             start.record()
             out = orig(*args)
             end.record()
-            held = plain is not None and self.hold(kernel, self.k)
+            nth = self.n_calls.get(kernel, 0)
+            self.n_calls[kernel] = nth + 1
+            held = plain is not None and self.hold(kernel, self.k, nth)
             plain_s = 0.0
             if held:
                 self.peak_before = max(self.peak_before, torch.cuda.max_memory_allocated())
@@ -327,11 +469,15 @@ class Held:
                 torch.cuda.synchronize()
                 plain_s = time.perf_counter() - t0
                 self.plain_s += plain_s
-                torch.cuda.reset_peak_memory_stats()
                 err = max_err(out, want)
-                self.errors[kernel] = max(self.errors.get(kernel, 0), err)
                 first = want[0] if isinstance(want, tuple) else want
-                if err or not first.any():
+                empty = not first.any()
+                # the check's tensors go before the peak restarts, so the
+                # run's peak counts only what the run itself holds
+                del want, first
+                torch.cuda.reset_peak_memory_stats()
+                self.errors[kernel] = max(self.errors.get(kernel, 0), err)
+                if err or empty:
                     raise AssertionError(f"{kernel} call (k={self.k}): kernel != plain "
                                          f"(max_abs_err {err}) or empty result")
             n = args[0].shape[-1]
@@ -385,11 +531,14 @@ def kernel_specs(scan_plain):
     """The wrappers the engine calls, each with its plain version (the scan
     wrappers' only when scan_plain)."""
     from khoice_tpu_torch.classify import annotate
-    from khoice_tpu_torch.engine import ksweep, ksweep_classify, occurrence, ops
+    from khoice_tpu_torch.engine import ksweep, ksweep_classify, occurrence, ops, streaming
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
+    from khoice_tpu_torch.kernels import sort as ksort
 
     return [
         (ksweep, "scan_multi_k", "occ",
+         ksweep_scan.scan_multi_k_reference if scan_plain else None),
+        (streaming, "scan_multi_k", "occ",
          ksweep_scan.scan_multi_k_reference if scan_plain else None),
         (ksweep_classify, "scan_classify", "scan_classify",
          ksweep_scan.scan_classify_reference if scan_plain else None),
@@ -398,30 +547,31 @@ def kernel_specs(scan_plain):
         (ops, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (occurrence, "occ_hist_packed", "B", occ_scan.occ_hist_packed_reference),
         (occurrence, "occ_hist", "C", occ_scan.occ_hist_reference),
-        (ksweep, "sort_words", "sort (plain torch)", None),
-        (occurrence, "sort_words", "sort (plain torch)", None),
-        (ops, "sort_words", "sort (plain torch)", None),
-        (annotate, "sort_words", "sort (plain torch)", None),
-    ]
+    ] + [(module, "sort_words", "sort", ksort.sort_words_reference)
+         for module in (ksweep, streaming, occurrence, ops, annotate)]
 
 
 def reset_counts():
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
+    from khoice_tpu_torch.kernels import sort as ksort
 
     for counts in (ksweep_scan.launches, extract.launches, occ_scan.launches):
         for key in counts:
             counts[key] = 0
+    ksort.launches = 0
 
 
 def read_counts():
     """Launches per kernel: the scan's modes, A (extraction, both forms),
-    B (packed histogram) and C (unpacked histogram)."""
+    B (packed histogram), C (unpacked histogram) and the sort."""
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
+    from khoice_tpu_torch.kernels import sort as ksort
 
     counts = dict(ksweep_scan.launches)
     counts["A"] = extract.launches["keys"] + extract.launches["packed"]
     counts["B"] = occ_scan.launches["packed"]
     counts["C"] = occ_scan.launches["unpacked"]
+    counts["sort"] = ksort.launches
     return counts
 
 
@@ -435,11 +585,14 @@ def count_lines(path):
     return len(lines)
 
 
-def run_path(label, argv, hold, uses, expect_lines, scan_plain=True):
+def run_path(label, argv, hold, uses, expect_lines, scan_plain=True, per_call=None):
     """Drive one main path through the CLI with every count set to 0 just
     before it, its kernel calls timed and held against their plain
     versions; return the counts read just after, each kernel's largest
-    difference and the per-kernel call summary."""
+    difference, the per-kernel call summary and the run's wall and peak
+    (checks excluded).  Every run sorts with the radix sort.  The calls
+    of the kernels in per_call are printed one by one (by default the
+    scan's, when they are held)."""
     from khoice_tpu_torch import cli
 
     torch.cuda.synchronize()
@@ -453,7 +606,7 @@ def run_path(label, argv, hold, uses, expect_lines, scan_plain=True):
         counts = read_counts()
     if rc != 0:
         raise AssertionError(f"{label} returned {rc}")
-    for kernel in uses:
+    for kernel in ["sort"] + list(uses):
         if counts[kernel] < 1:
             raise AssertionError(f"{label}: the {kernel} kernel was never launched")
     lines = {os.path.basename(p): count_lines(p) for p in expect_lines}
@@ -464,8 +617,10 @@ def run_path(label, argv, hold, uses, expect_lines, scan_plain=True):
     print(f"{label}: wall {wall - held.plain_s:.2f} s (and {held.plain_s:.2f} s of plain "
           f"checks), peak device memory {held.peak() / 2**30:.2f} GiB, launches "
           f"{ {k: v for k, v in counts.items() if v} }, lines {lines}", flush=True)
-    per = held.report(per_call=("occ",) + MODES if scan_plain else ())
-    return counts, held.errors, per
+    if per_call is None:
+        per_call = ("occ",) + MODES if scan_plain else ()
+    per = held.report(per_call)
+    return counts, held.errors, per, {"wall": wall - held.plain_s, "peak": held.peak()}
 
 
 def gen_db(tmp, name, datasets, genomes, mbp):
@@ -487,46 +642,59 @@ def merge(errors, into):
         into[kernel] = max(into.get(kernel, 0), err)
 
 
+def hold_sorts_and(hold):
+    """hold(kernel, k, nth) that holds the first SORT_HOLDS sorts of a run
+    and, for the other kernels, the calls `hold(kernel, k)` picks."""
+    return lambda kernel, k, nth: nth < SORT_HOLDS if kernel == "sort" else hold(kernel, k)
+
+
 def main_paths(tmp):
     phase("4a main paths on 4 x 8 x 2 Mbp: run --exp-type 1, 2, 3, 4; 3 and 4 per-k")
     db = gen_db(tmp, "db", 4, 8, 2.0)
     g = len(K_GRID)
-    every = lambda kernel, k: True  # noqa: E731
-    launches, errors = {}, {}
+    every = hold_sorts_and(lambda kernel, k: True)
+    launches, errors, sorts = {}, {}, {}
     work1 = os.path.join(tmp, "work1")
-    c, e, _ = run_path("exp1, 30 ks", ["run", "--exp-type", "1", "--database-root", db,
-                                       "--work-root", work1], every, ["occ"], {
+    c, e, _, _ = run_path("exp1, 30 ks", ["run", "--exp-type", "1", "--database-root", db,
+                                          "--work-root", work1], every, ["occ"], {
         os.path.join(work1, "step_5/within_datasets_analysis.csv"): 1 + 4 * g,
         os.path.join(work1, "step_9/across_datasets_analysis.csv"): 1 + g})
     launches["occ"] = c["occ"]
+    sorts["exp1 on 4 x 8 x 2 Mbp"] = c["sort"]
     merge(e, errors)
     work = os.path.join(tmp, "work")
     common = ["--database-root", db, "--work-root", work, "--kmers-per-dataset", "2000000"]
-    c, e, _ = run_path("exp2 (with exp0), 30 ks", ["run", "--exp-type", "2", *common], every,
-                       ["pivot_rest", "multi_pivot"], {
+    c, e, _, _ = run_path("exp2 (with exp0), 30 ks", ["run", "--exp-type", "2", *common], every,
+                          ["pivot_rest", "multi_pivot"], {
         os.path.join(work, "within_dataset_analysis_type_2/within_dataset_analysis.csv"): 1 + 4 * g,
         os.path.join(work, "across_dataset_analysis_type_2/across_dataset_analysis.csv"): 1 + 4 * g})
     launches["pivot_rest"], launches["multi_pivot"] = c["pivot_rest"], c["multi_pivot"]
+    sorts["exp2 on 4 x 8"] = c["sort"]
     merge(e, errors)
-    c, e, _ = run_path("exp3, 30 ks", ["run", "--exp-type", "3", *common], every, ["containment"], {
+    c, e, _, _ = run_path("exp3, 30 ks", ["run", "--exp-type", "3", *common], every,
+                          ["containment"], {
         os.path.join(work, "final_analysis_type3/final_analysis_type3.csv"): 1 + 2 * 4 * g * 4})
     launches["containment"] = c["containment"]
+    sorts["exp3 on 4 x 8"] = c["sort"]
     merge(e, errors)
-    c, e, _ = run_path("exp4, 30 ks", ["run", "--exp-type", "4", *common], every, ["buckets"], {
+    c, e, _, _ = run_path("exp4, 30 ks", ["run", "--exp-type", "4", *common], every, ["buckets"], {
         os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * g})
     launches["buckets"] = c["buckets"]
+    sorts["exp4 on 4 x 8"] = c["sort"]
     merge(e, errors)
     # the per-k table ops: a 2-k grid leaves every k to them
     perk = ["--force", "--k-values", "21,31"]
-    c, e, _ = run_path("exp3 per-k (ks 21,31)", ["run", "--exp-type", "3", *common, *perk],
-                       every, ["A"], {
+    c, e, _, _ = run_path("exp3 per-k (ks 21,31)", ["run", "--exp-type", "3", *common, *perk],
+                          every, ["A"], {
         os.path.join(work, "final_analysis_type3/final_analysis_type3.csv"): 1 + 2 * 4 * 2 * 4})
+    sorts["exp3 per-k on 4 x 8"] = c["sort"]
     merge(e, errors)
-    c, e, _ = run_path("exp4 per-k (ks 21,31)", ["run", "--exp-type", "4", *common, *perk],
-                       every, ["A"], {
+    c, e, _, _ = run_path("exp4 per-k (ks 21,31)", ["run", "--exp-type", "4", *common, *perk],
+                          every, ["A"], {
         os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * 2})
+    sorts["exp4 per-k on 4 x 8"] = c["sort"]
     merge(e, errors)
-    return launches, errors
+    return launches, errors, sorts, db, work1
 
 
 def large_group_paths(tmp):
@@ -534,10 +702,10 @@ def large_group_paths(tmp):
           "run --exp-type 1, 2")
     db = gen_db(tmp, "db96", 2, 96, 1.0)
     g = len(K_GRID)
-    at_hold_ks = lambda kernel, k: k in HOLD_KS  # noqa: E731
-    launches, errors, per = {}, {}, {}
+    at_hold_ks = hold_sorts_and(lambda kernel, k: k in HOLD_KS)
+    launches, errors, per, sorts = {}, {}, {}, {}
     work1 = os.path.join(tmp, "work96_1")
-    c, e, per["exp1"] = run_path(
+    c, e, per["exp1"], _ = run_path(
         "exp1 on 2 x 96 x 1 Mbp, 30 ks", ["run", "--exp-type", "1", "--database-root", db,
                                           "--work-root", work1],
         at_hold_ks, ["A", "B", "occ"], {
@@ -545,9 +713,10 @@ def large_group_paths(tmp):
             os.path.join(work1, "step_9/across_datasets_analysis.csv"): 1 + g},
         scan_plain=False)
     launches["A"], launches["B"] = c["A"], c["B"]
+    sorts["exp1 on 2 x 96 x 1 Mbp"] = c["sort"]
     merge(e, errors)
     work2 = os.path.join(tmp, "work96_2")
-    c, e, per["exp2"] = run_path(
+    c, e, per["exp2"], _ = run_path(
         "exp2 (with exp0) on 2 x 96 x 1 Mbp, 30 ks",
         ["run", "--exp-type", "2", "--database-root", db, "--work-root", work2,
          "--kmers-per-dataset", "2000000"],
@@ -555,11 +724,105 @@ def large_group_paths(tmp):
             os.path.join(work2, "within_dataset_analysis_type_2/within_dataset_analysis.csv"): 1 + 2 * g,
             os.path.join(work2, "across_dataset_analysis_type_2/across_dataset_analysis.csv"): 1 + 2 * g},
         scan_plain=False)
+    sorts["exp2 on 2 x 96"] = c["sort"]
     merge(e, errors)
     held = {kernel: per["exp1"].get(kernel, {}).get("held", 0) + per["exp2"].get(kernel, {}).get("held", 0)
-            for kernel in ("A packed", "A keys", "B")}
-    print(f"held against their plain versions at k in {HOLD_KS}: {held} calls, all equal")
-    return launches, errors
+            for kernel in ("A packed", "A keys", "B", "sort")}
+    print(f"held against their plain versions (A and B at k in {HOLD_KS}, the first "
+          f"{SORT_HOLDS} sorts of each run): {held} calls, all equal")
+    return launches, errors, sorts, db, work1
+
+
+def streaming_paths(tmp, runs):
+    """exp1 under device budgets below its in-core need: `runs` is
+    [(label, database, budget GiB, n_groups, in-core work root, kernels
+    the run uses)].  Each run's first STREAM_HOLDS chunk sorts, its first
+    key-range group's sort and that group's raw scan are held against
+    their plain versions.  Returns each kernel's largest difference and
+    each run's sort launches."""
+    phase("4c the streaming sweep: run --exp-type 1 under a device budget below the "
+          "in-core need")
+    import logging
+
+    from khoice_tpu_torch.engine import streaming
+    from khoice_tpu_torch.utils.logging import get_logger
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(f"{record.name} {record.levelname} {record.getMessage()}")
+
+    # which of the stream's steps a kernel call is in: its name and how
+    # many calls of it the run has made
+    site = {"chunk": 0, "group": 0, "in": None}
+
+    def step(name, fn):
+        def call(*args):
+            site[name] += 1
+            site["in"] = name
+            try:
+                return fn(*args)
+            finally:
+                site["in"] = None
+        return call
+
+    def hold(kernel, k, nth):
+        if site["in"] == "chunk":
+            return kernel == "sort" and site["chunk"] <= STREAM_HOLDS
+        return site["in"] == "group" and site["group"] == 1
+
+    keep = Keep()
+    loggers = [get_logger("khoice.streaming"), get_logger("khoice.exp1")]
+    for logger in loggers:
+        logger.addHandler(keep)
+    steps = [(name, getattr(streaming, name)) for name in ("_chunk_step", "_group_scan")]
+    for name, fn in steps:
+        setattr(streaming, name, step(name.split("_")[1], fn))
+    g = len(K_GRID)
+    errors, sorts = {}, {}
+    csvs = ("step_5/within_datasets_analysis.csv", "step_9/across_datasets_analysis.csv")
+    try:
+        for label, db, gib, n_groups, incore, uses in runs:
+            work = os.path.join(tmp, f"stream_{gib}gib")
+            del lines[:]
+            site.update(chunk=0, group=0)
+            c, e, per, stats = run_path(
+                f"exp1 streamed on {label}, --device-budget-gb {gib}",
+                ["run", "--exp-type", "1", "--database-root", db, "--work-root", work,
+                 "--device-budget-gb", str(gib), "--force"], hold, ["occ"] + uses,
+                {os.path.join(work, csvs[0]): 1 + n_groups * g, os.path.join(work, csvs[1]): 1 + g},
+                per_call=())
+            sorts[f"exp1 streamed on {label}"] = c["sort"]
+            merge(e, errors)
+            if per["sort"]["held"] != STREAM_HOLDS + 1 or per["occ"]["held"] != 1:
+                raise AssertionError(f"{label}: held {per['sort']['held']} sorts and "
+                                     f"{per['occ']['held']} scans, expected "
+                                     f"{STREAM_HOLDS + 1} and 1")
+            print(f"held against their plain versions: the first {STREAM_HOLDS} chunk sorts, "
+                  "the first key-range group's sort and its raw scan, all equal")
+            streamed = [line for line in lines if "streaming" in line]
+            if not any("streaming class" in line and "done" in line for line in streamed):
+                raise AssertionError(f"{label}: exp1 did not stream under {gib} GiB")
+            for line in streamed:
+                print(f"  log: {line}")
+            for rel in csvs:
+                with open(os.path.join(work, rel), "rb") as fd, \
+                        open(os.path.join(incore, rel), "rb") as ref:
+                    if fd.read() != ref.read():
+                        raise AssertionError(f"{label}: streamed {rel} differs from the in-core run's")
+            if stats["peak"] > gib * 2**30:
+                raise AssertionError(f"{label}: peak {stats['peak'] / 2**30:.2f} GiB over the "
+                                     f"{gib} GiB budget")
+            print(f"exp1 streamed on {label}: step_5 and step_9 bytes equal the in-core run's; "
+                  f"wall {stats['wall']:.2f} s, peak device memory {stats['peak'] / 2**30:.2f} "
+                  f"GiB within the {gib} GiB budget", flush=True)
+    finally:
+        for name, fn in steps:
+            setattr(streaming, name, fn)
+        for logger in loggers:
+            logger.removeHandler(keep)
+    return errors, sorts
 
 
 _COMP = str.maketrans("ACGT", "TGCA")
@@ -791,12 +1054,12 @@ def small_world_tables():
           "counter's (ks 11, 31, 45)")
 
 
-def kernel_record(name, source, replaces, launches, r):
+def kernel_record(name, source, replaces, launches, r, library_ms=None):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": library_ms,
     }
 
 
@@ -812,13 +1075,26 @@ def main():
     walls["kernels vs plain"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        launches, errors = main_paths(tmp)
+        launches, errors, sorts, db, work1 = main_paths(tmp)
         walls["main paths 4 x 8"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        big_launches, big_errors = large_group_paths(tmp)
+        big_launches, big_errors, big_sorts, db96, work96 = large_group_paths(tmp)
         walls["main paths 2 x 96"] = time.perf_counter() - t0
         launches.update(big_launches)
+        sorts.update(big_sorts)
         merge(big_errors, errors)
+        t0 = time.perf_counter()
+        stream_errors, stream_sorts = streaming_paths(tmp, [
+            ("2 x 96 x 1 Mbp", db96, 12, 2, work96, ["A", "B"]),
+            ("4 x 8 x 2 Mbp", db, 4, 4, work1, []),
+        ])
+        walls["streaming 4c"] = time.perf_counter() - t0
+        sorts.update(stream_sorts)
+        merge(stream_errors, errors)
+        # the sort's record reports one run, counted from 0 just before it
+        launches["sort"] = sorts[SORT_RUN]
+        print(f"radix_sort launches per run (each counted from 0): {sorts}; the kernels "
+              f"line reports {SORT_RUN!r}: {launches['sort']}", flush=True)
         t0 = time.perf_counter()
         launches["C"] = small_world_exp1(tmp)
         small_world_classify()
@@ -835,8 +1111,11 @@ def main():
     walls["all"] = time.perf_counter() - t_all
     print("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     print(smi_line())
-    kernels = [kernel_record("ksweep_scan", SCAN_SOURCE, f"{SCAN_REPLACES}:299",
-                             launches["occ"], results["occ"])]
+    kernels = [kernel_record("radix_sort", "khoice_tpu_torch/csrc/radix_sort.cu",
+                             "khoice_tpu/kernels/merge_pallas.py:340", launches["sort"],
+                             results["sort"], results["sort"]["library_ms"])]
+    kernels += [kernel_record("ksweep_scan", SCAN_SOURCE, f"{SCAN_REPLACES}:299",
+                              launches["occ"], results["occ"])]
     kernels += [kernel_record(f"ksweep_scan.{mode}", SCAN_SOURCE, f"{SCAN_REPLACES}:221",
                               launches[mode], results[mode]) for mode in MODES]
     kernels += [

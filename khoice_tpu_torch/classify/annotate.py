@@ -20,8 +20,8 @@ import numpy as np
 import torch
 
 from ..engine.ops import _run_starts, _run_sums
-from ..engine.sort import sort_words
 from ..engine.table import KmerTable
+from ..kernels.sort import sort_words
 
 
 @dataclasses.dataclass

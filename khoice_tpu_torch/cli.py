@@ -239,8 +239,8 @@ def main(argv=None) -> int:
                        help="devices along the k-mer key-range mesh axis (not ported: 1 only)")
     run_p.add_argument("--device-budget-gb", type=float, default=None,
                        help="device memory budget of the exp1-4 sweeps and per-k "
-                            "sorts (default: 85%% of the device; a group beyond it "
-                            "raises, the streaming sweep is not ported)")
+                            "sorts (default: 85%% of the device; an exp1 group beyond "
+                            "it streams in bounded memory, other sweeps raise)")
     run_p.add_argument("--trials", type=int, default=None,
                        help="fan exp0/2/3/4 over trials 1..N (reference NUM_TRIALS; "
                             "ignored by exp1)")

@@ -39,9 +39,9 @@ from ..kernels.ksweep_scan import (  # noqa: F401  (scan_multi_k_reference re-ex
     scan_multi_k_reference,
 )
 from ..kernels.extract import occ_words_static
+from ..kernels.sort import sort_words
 from ..utils.logging import get_logger
 from .occurrence import occurrence_histogram_packed, pack_members
-from .sort import sort_words
 
 log = get_logger("khoice.ksweep")
 
@@ -166,15 +166,21 @@ def _extract_fwd_sweep(codes2: torch.Tensor, gids2: torch.Tensor, kmax: int,
     return fwd, (gids2 << NIO_BITS) | nio
 
 
-def _sweep_doubled(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
-                   KW: int, packed: bool):
-    """Doubled text (codes ++ revcomp) -> forward kmax-mer elements -> ONE
-    sorted array: (int64 [KW, n2] words, payload or None)."""
+def _doubled_elements(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
+                      KW: int, packed: bool):
+    """Doubled text (codes ++ revcomp) -> its forward kmax-mer elements,
+    unsorted: (int64 [KW, n2] words, payload or None)."""
     rc = torch.where(codes < 4, codes ^ 3, codes).flip(0)
     codes2 = torch.cat([codes, rc])
     gids2 = torch.cat([gids, gids.flip(0)])
-    fwd, payload = _extract_fwd_sweep(codes2, gids2, kmax, KW, packed=packed)
-    return sort_words(fwd, payload)
+    return _extract_fwd_sweep(codes2, gids2, kmax, KW, packed=packed)
+
+
+def _sweep_doubled(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
+                   KW: int, packed: bool):
+    """The doubled text's elements as ONE sorted array: (int64 [KW, n2]
+    words, payload or None)."""
+    return sort_words(*_doubled_elements(codes, gids, kmax, KW, packed))
 
 
 def occurrence_histograms_sweep_packed(

@@ -36,8 +36,8 @@ import torch
 
 from ..kernels.extract import GID_BITS, PACK_KMAX, extract_canonical, extract_packed
 from ..kernels.occ_scan import occ_hist, occ_hist_packed, run_occurrences
+from ..kernels.sort import sort_words
 from .bits import SENTINEL, key_words, words_is_sentinel, words_select
-from .sort import sort_words
 from .table import KmerTable
 
 

@@ -19,7 +19,7 @@ Semantics, as the reference pipeline relies on them:
   hist[i-1] = number of present keys with count == i, i in 1..cx.
 
 Tables are compact (engine/table.py).  Sorts are the port's multi-word
-LSD sort (engine/sort.py); run sums come from run ids
+radix sort (kernels/sort.py); run sums come from run ids
 (cumsum of the run starts) and a segment sum, not from the JAX package's
 reverse cummin, which cost 750 ms over an exp1 run on an H100.
 """
@@ -29,8 +29,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels.extract import extract_canonical
+from ..kernels.sort import sort_words
 from .bits import words_eq, words_is_sentinel
-from .sort import sort_words
 from .table import KmerTable
 
 __all__ = [

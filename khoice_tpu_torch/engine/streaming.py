@@ -1,34 +1,77 @@
-"""Device memory budget of the shared-sort sweeps and of the per-k fused
-path, exp1's and the classification experiments' (port of the budget
-part of khoice_tpu/engine/streaming.py).
+"""Device memory budget of the sweeps and the per-k path, and exp1's
+bounded-memory streaming sweep (port of khoice_tpu/engine/streaming.py).
 
-The JAX package dispatches a group whose in-core sweep would not fit the
-device to a bounded-memory streaming sweep.  That sweep is not ported
-yet (ROADMAP.md queue 1 item 5): here a group over budget raises, on the
-shared-sort sweep and on the per-k path alike.
+KMC counts any input on a fixed memory budget (`kmc -fm -m64`, reference
+workflow/rules/exp_type_1.smk:163).  exp1 sends a group whose in-core
+sweep would not fit the device budget (`incore_sweep_bytes`) to
+`occurrence_histograms_sweep_streaming`, which runs the SAME sweep chunk
+by chunk:
+
+- the doubled text's codes (1 B per position) stay resident on the
+  device; only the sort structures are big, and those are built per chunk;
+- k-mer space is split into G top-word key ranges ALIGNED to 2*kmin-bit
+  prefixes, so no k-run of any swept k tears across two groups;
+- per pass, for each text chunk: extract its elements plus a kmax-1 halo,
+  sentinel-encode the invalid and halo ones, sort them with the radix
+  sort kernel, and copy each in-range group's elements (a contiguous
+  slice of the sorted chunk, found with searchsorted) into that group's
+  buffer at the chunk's slot;
+- per group: sort the buffer and run the multi-k scan in RAW (doubled,
+  palindromic) form; the raw histograms add over the groups and are
+  halved at the end (a canonical class's two strand runs can land in
+  different key ranges);
+- a group whose buffer overflows its cap (key-space skew beyond `_SLACK`)
+  is re-queued alone with a doubled cap; groups that finished keep their
+  scans and are never extracted or sorted again.
+
+Peak device memory ~= resident codes + one pass's group buffers + the
+larger of one chunk's sort and one group's sort (`_stream_plan`),
+whatever the input size.  Results equal the in-core sweep's.  The
+classification sweeps have no streaming path (nor in the JAX package):
+there a group over budget raises DeviceBudgetExceeded.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from ..kernels.extract import occ_words_static
-from .bits import key_words
-from .ksweep import plan_sweep
-from .occurrence import gid_packable
+from ..kernels.sort import sort_words
+from ..utils.logging import get_logger
+from .bits import SENTINEL, key_words
+from .ksweep import (
+    PACK_GID_BITS,
+    PACK_NIO_BITS,
+    _extract_fwd_sweep,
+    plan_sweep,
+    scan_multi_k,
+)
+from .occurrence import gid_packable, occurrence_histogram_packed, pack_members
+
+log = get_logger("khoice.streaming")
 
 # The port's peak bytes per element of one sort (a doubled-text element
 # of a class sort, a text position of a per-k sort), in int64 units: the
 # extracted words and their sorted copy (2 x W: W = KW, +1 for a separate
 # payload; per k, occ_words_static(k) packed or key_words(k) + 1 with the
-# gid apart) plus the sort's key, value and permutation vectors (6).
+# gid apart) plus the extraction's temporaries and the radix sort's uint32
+# scratch (6; the sort itself needs W / 2, +2 with a payload).
 _SORT_OVERHEAD_WORDS = 6
+
+# the smallest chunk the streaming sweep cuts, whatever the budget
+_MIN_CHUNK = 1 << 12
+
+# a group buffer's slot per chunk holds this many times the chunk's
+# elements over the groups (room for key-space skew before a retry)
+_SLACK = 1.7
 
 
 class DeviceBudgetExceeded(RuntimeError):
-    """A group's in-core sweep needs more device memory than the budget."""
+    """A group's sweep needs more device memory than the budget."""
 
 
 def default_device_budget_bytes(device) -> int:
@@ -42,6 +85,12 @@ def default_device_budget_bytes(device) -> int:
     return 64 << 30
 
 
+def _sort_bytes(n_elems: int, words: int) -> int:
+    """Estimated peak device bytes of one sort of n_elems elements of
+    `words` int64 words, its input and output included."""
+    return n_elems * 8 * (2 * words + _SORT_OVERHEAD_WORDS)
+
+
 def incore_sweep_bytes(total_positions: int, ks: Sequence[int], n_members: int) -> int:
     """Estimated peak device bytes of the port's in-core sweep over a
     group whose packed text (members + separators) spans `total_positions`:
@@ -50,8 +99,7 @@ def incore_sweep_bytes(total_positions: int, ks: Sequence[int], n_members: int) 
     n2 = 2 * total_positions
     worst = 0
     for _kmax, KW, _cks, packed in classes:
-        words = KW if packed else KW + 1
-        worst = max(worst, n2 * 8 * (2 * words + _SORT_OVERHEAD_WORDS))
+        worst = max(worst, _sort_bytes(n2, KW if packed else KW + 1))
     return worst
 
 
@@ -62,7 +110,7 @@ def perk_bytes(total_positions: int, ks: Sequence[int], n_members: int) -> int:
     worst = 0
     for k in ks:
         words = occ_words_static(k) if gid_packable(n_members, k) else key_words(k) + 1
-        worst = max(worst, total_positions * 8 * (2 * words + _SORT_OVERHEAD_WORDS))
+        worst = max(worst, _sort_bytes(total_positions, words))
     return worst
 
 
@@ -71,8 +119,9 @@ def check_device_budget(need_bytes: int, budget_bytes: int, label: str) -> None:
     if need_bytes > budget_bytes:
         raise DeviceBudgetExceeded(
             f"{label}: needs ~{need_bytes / 2**30:.1f} GiB of device memory, over the "
-            f"device budget of {budget_bytes / 2**30:.1f} GiB; the bounded-memory "
-            "streaming sweep is not yet ported (ROADMAP.md queue 1 item 5)"
+            f"device budget of {budget_bytes / 2**30:.1f} GiB; only exp1's shared-sort "
+            "classes stream under a budget (the per-k sorts and the classification "
+            "sweeps run in-core)"
         )
 
 
@@ -84,3 +133,263 @@ def check_incore_budget(total_positions: int, ks: Sequence[int], n_members: int,
     need = max(incore_sweep_bytes(total_positions, ks, n_members),
                perk_bytes(total_positions, remaining, n_members))
     check_device_budget(need, budget_bytes, label)
+
+
+def sentinel_encode_packed(fwd: torch.Tensor, KW: int, nio_bits: int, gid_bits: int):
+    """Copied from khoice_tpu/engine/fastsort.py::sentinel_encode_packed,
+    on the port's int64 [KW, n] words.
+
+    Re-encode invalid packed elements (nio == 0) to the dominant
+    sentinel: all-ones key words, ZERO payload bits in the last word.
+    The sentinel sorts strictly after EVERY real element: the last word's
+    spare-above-payload bits (>= 2 of them, since packing requires spare
+    >= PACK_MIN_SPARE = 14 > the 12 payload bits) are ones in the sentinel
+    but zero in every real element.  The occurrence scans are unaffected
+    (the sentinel's nio bits stay 0).  Returns (encoded, invalid_mask)."""
+    invalid = (fwd[-1] & ((1 << nio_bits) - 1)) == 0
+    sent = _sentinel_column(KW, fwd.device, nio_bits, gid_bits)
+    return torch.where(invalid, sent, fwd), invalid
+
+
+def _sentinel_column(KW: int, device, nio_bits: int = PACK_NIO_BITS,
+                     gid_bits: int = PACK_GID_BITS) -> torch.Tensor:
+    """int64 [KW, 1]: the packed sentinel, all ones but the last word's
+    nio_bits + gid_bits payload bits."""
+    col = torch.full((KW, 1), SENTINEL, dtype=torch.int64, device=device)
+    col[KW - 1] = SENTINEL & ~((1 << (nio_bits + gid_bits)) - 1)
+    return col
+
+
+def _group_splits(G: int, kmin: int) -> np.ndarray:
+    """G+1 ascending top-word split values aligned to 2*kmin-bit prefixes
+    (alignment caps the usable granularity at 4^kmin prefixes)."""
+    bits = min(2 * kmin, 32)
+    keep = np.uint64(0xFFFFFFFF) << np.uint64(32 - bits)
+    raw = (np.arange(G + 1, dtype=np.uint64) << np.uint64(32)) // np.uint64(G)
+    lo = np.minimum(raw, 0xFFFFFFFF).astype(np.uint64) & keep
+    lo[-1] = 0xFFFFFFFF  # last group closes at the top (inclusive w0)
+    return lo.astype(np.int64)
+
+
+def _stream_plan(total: int, KW: int, H: int, kmin: int, budget: int,
+                 chunk_elems: int | None = None, n_groups: int | None = None,
+                 pass_groups: int | None = None):
+    """(C chunk elements, n_chunks, G groups, cap per chunk slot, R groups
+    per pass) of a packed class over `total` doubled elements.
+
+    The JAX package sizes these in 4-byte words; the port's words are 8
+    bytes and its sorts need `_sort_bytes`.  Of the budget left over by
+    the resident codes, a quarter bounds one chunk's sort, a quarter one
+    group's sort beside its buffer, and a half one pass's group buffers,
+    so `_stream_peak_bytes` stays within the budget.  Overrides (the
+    tests force them) are taken as given."""
+    quarter = _free_quarter(budget, total, H)
+    per_elem = _sort_bytes(1, KW)
+    C = chunk_elems or max(1, min(total, max(_MIN_CHUNK, quarter // per_elem - H)))
+    n_chunks = math.ceil(total / C)
+    G = n_groups or max(1, math.ceil(_SLACK * n_chunks * C * per_elem / max(quarter, 1)))
+    G = min(G, 1 << min(2 * kmin, 32))
+    cap = max(1, int(_SLACK * C / G))
+    R = pass_groups or _pass_groups(G, n_chunks * cap, KW, quarter)
+    return C, n_chunks, G, cap, R
+
+
+def _free_quarter(budget: int, total: int, H: int) -> int:
+    """A quarter of the budget left over by the resident doubled codes."""
+    return max(budget - (total + H), 4) // 4
+
+
+def _pass_groups(G: int, group_elems: int, KW: int, quarter: int) -> int:
+    """Groups per pass whose buffers fit half the free budget."""
+    return max(1, min(G, (2 * quarter) // (group_elems * 8 * KW)))
+
+
+def _stream_peak_bytes(total: int, KW: int, H: int, C: int, n_chunks: int, cap: int,
+                       R: int) -> int:
+    """Estimated peak device bytes of a streamed class: resident codes,
+    R group buffers, and the larger of a chunk's sort and a group's sort
+    (whose input is one of the buffers)."""
+    group = n_chunks * cap
+    return (n_chunks * C + H + R * group * 8 * KW
+            + max(_sort_bytes(C + H, KW), _sort_bytes(group, KW) - group * 8 * KW))
+
+
+def _doubled_codes(member_codes: Sequence[np.ndarray], C: int, H: int):
+    """Host-side doubled text (codes ++ revcomp) padded to a multiple of
+    the chunk size plus the halo, plus member start offsets for gid
+    rebuild: (codes uint8, starts int64, n, n_chunks)."""
+    parts, starts = [], [0]
+    for codes in member_codes:
+        parts.append(np.asarray(codes, np.uint8))
+        parts.append(np.full(1, 4, np.uint8))
+        starts.append(starts[-1] + parts[-2].shape[0] + 1)
+    codes = np.concatenate(parts)
+    n = codes.shape[0]
+    rc = np.where(codes < 4, codes ^ 3, codes)[::-1]
+    n_chunks = math.ceil(2 * n / C)
+    pad = n_chunks * C - 2 * n + H
+    d = np.concatenate([codes, rc, np.full(pad, 4, np.uint8)])
+    return d, np.asarray(starts[:-1], np.int64), n, n_chunks
+
+
+def _chunk_step(d_codes: torch.Tensor, member_starts: torch.Tensor, bufs: list, n: int,
+                c: int, C: int, H: int, kmax: int, KW: int, cap: int,
+                lo: torch.Tensor, hi: torch.Tensor) -> List[int]:
+    """Extract + sort chunk c of the doubled text and copy each group's
+    in-range elements into its buffer at the chunk's slot.
+
+    bufs: R int64 [KW, n_chunks * cap] buffers (None for a group that has
+    already overflowed), updated in place (the JAX package returns new
+    buffers; its note on donation does not apply to torch); lo/hi: int64
+    [R] inclusive top-word ranges.  Returns each group's in-range count
+    (a count above cap means the group overflowed; nothing is copied)."""
+    dev = d_codes.device
+    start = c * C
+    pos = start + torch.arange(C + H, dtype=torch.int64, device=dev)
+    # n = true text length (the doubled region is [0, 2n); anything past
+    # it is chunk-alignment padding, code 4 -> invalid -> dropped)
+    orig = torch.where(pos < n, pos, 2 * n - 1 - pos).clamp(0, n - 1)
+    gids = torch.searchsorted(member_starts, orig, right=True) - 1
+    del pos, orig
+    fwd, _ = _extract_fwd_sweep(d_codes[start:start + C + H], gids, kmax, KW, packed=True)
+    del gids
+    # the halo's elements belong to the next chunk: a zero nio makes them
+    # sentinels, as the invalid ones
+    fwd[KW - 1, C:] &= ~((1 << PACK_NIO_BITS) - 1)
+    elems, _ = sentinel_encode_packed(fwd, KW, PACK_NIO_BITS, PACK_GID_BITS)
+    del fwd
+    s, _ = sort_words(elems)
+    del elems
+
+    i0 = torch.searchsorted(s[0], lo)
+    i1 = torch.searchsorted(s[0], hi, right=True)
+    # sentinels share w0 = 0xFFFFFFFF with the last group's hi: exclude
+    # them by their last word (payload bits zero, > any real element)
+    sent_like = (s[KW - 1] & ((1 << PACK_NIO_BITS) - 1)) == 0
+    n_sent_like = torch.stack([(sent_like & (s[0] >= lo[r]) & (s[0] <= hi[r])).sum()
+                               for r in range(lo.shape[0])])
+    firsts = i0.tolist()
+    counts = (i1 - i0 - n_sent_like).tolist()
+    for buf, first, cnt in zip(bufs, firsts, counts):
+        if buf is not None and cnt <= cap:
+            buf[:, c * cap:c * cap + cnt] = s[:, first:first + cnt]
+    return counts
+
+
+def _group_scan(buf: torch.Tensor, ks: Sequence[int], n_members: int, cs: int) -> torch.Tensor:
+    """Sort one group buffer and return its RAW (2, n_ks, n_members)."""
+    s, _ = sort_words(buf)
+    return scan_multi_k(s, None, ks, n_members, cs, True)
+
+
+def occurrence_histograms_sweep_streaming(
+    member_codes: Sequence[np.ndarray],
+    ks: Sequence[int],
+    device,
+    cs: int = 5000,
+    cx: int = 10000,
+    device_budget_bytes: int = 8 << 30,
+    chunk_elems: int | None = None,
+    n_groups: int | None = None,
+    pass_groups: int | None = None,
+) -> Dict[int, List[int]]:
+    """{k: exp1 occurrence histogram} under a device memory budget, on
+    `device`.
+
+    Equal to engine/ksweep.occurrence_histograms_sweep; use when the group
+    is too large for the in-core doubled-text sort.  Only packed classes
+    stream (any grid with >= 3 ks packs); the ks left over take the per-k
+    fused path, whose sorts must fit the budget (`perk_bytes`)."""
+    device = torch.device(device)
+    n_members = len(member_codes)
+    if n_members > (1 << PACK_GID_BITS):
+        raise ValueError(f"packed gid field is {PACK_GID_BITS} bits")
+    classes, remaining = plan_sweep(ks, n_members)
+    positions = sum(int(np.asarray(m).shape[0]) + 1 for m in member_codes)
+    total = 2 * positions
+    out: Dict[int, List[int]] = {}
+
+    for kmax, KW, cks, packed in classes:
+        if not packed:
+            remaining = sorted(set(remaining) | set(cks))
+            continue
+        H = kmax - 1
+        kmin = min(cks)
+        C, n_chunks, G, cap, R = _stream_plan(total, KW, H, kmin, device_budget_bytes,
+                                              chunk_elems, n_groups, pass_groups)
+        splits = _group_splits(G, kmin)
+        d, starts, n, n_chunks = _doubled_codes(member_codes, C, H)
+        log.info(
+            "streaming class kmax=%d: %d chunks x %d elems, %d key-range groups "
+            "(cap %d per chunk, %d per pass), resident codes %.1f MB, estimated peak "
+            "%.2f GiB of a %.2f GiB budget",
+            kmax, n_chunks, C, G, cap, R, d.nbytes / 1e6,
+            _stream_peak_bytes(total, KW, H, C, n_chunks, cap, R) / 2**30,
+            device_budget_bytes / 2**30,
+        )
+        d_codes = torch.from_numpy(d).to(device)
+        member_starts = torch.from_numpy(starts).to(device)
+        sent = _sentinel_column(KW, device)
+
+        # Overflow recovery is CONTAINED: a key-range group whose buffer
+        # cap overflows (key-space skew, e.g. long poly-A) is re-queued
+        # alone with a doubled cap; groups that finished keep their
+        # accumulated raw scans and are never re-extracted or re-sorted.
+        dp = torch.zeros((2, len(cks), n_members), dtype=torch.int64, device=device)
+        todo = list(range(G))
+        round_cap, r_round = cap, R
+        passes = chunk_sorts = retries = 0
+        while todo:
+            overflowed: List[int] = []
+            for b0 in range(0, len(todo), r_round):
+                batch = todo[b0:b0 + r_round]
+                lo = torch.tensor([int(splits[g]) for g in batch], dtype=torch.int64,
+                                  device=device)
+                hi = torch.tensor([0xFFFFFFFF if g == G - 1 else int(splits[g + 1]) - 1
+                                   for g in batch], dtype=torch.int64, device=device)
+                bufs = [sent.expand(KW, n_chunks * round_cap).clone() for _ in batch]
+                passes += 1
+                for c in range(n_chunks):
+                    counts = _chunk_step(d_codes, member_starts, bufs, n, c, C, H, kmax, KW,
+                                         round_cap, lo, hi)
+                    chunk_sorts += 1
+                    for r, cnt in enumerate(counts):
+                        if cnt > round_cap:
+                            bufs[r] = None
+                    if all(buf is None for buf in bufs):
+                        break  # every group in the batch must retry anyway
+                for r, g in enumerate(batch):
+                    if bufs[r] is None:
+                        overflowed.append(g)
+                        continue
+                    dp += _group_scan(bufs[r], cks, n_members, cs)
+                    bufs[r] = None
+            todo = overflowed
+            if todo:
+                retries += 1
+                round_cap *= 2
+                r_round = pass_groups or _pass_groups(
+                    G, n_chunks * round_cap, KW, _free_quarter(device_budget_bytes, total, H))
+                log.warning(
+                    "streaming class kmax=%d: %d/%d key-range groups overflowed their "
+                    "cap (skewed key space at kmin=%d granularity); retrying ONLY those "
+                    "with cap %d, %d per pass",
+                    kmax, len(todo), G, kmin, round_cap, r_round,
+                )
+        log.info("streaming class kmax=%d done: %d passes, %d chunk sorts, %d group "
+                 "scans, %d retry rounds", kmax, passes, chunk_sorts, G, retries)
+
+        hists = ((dp[0] + dp[1]) // 2).cpu().tolist()
+        m = min(n_members, cx)
+        for i, k in enumerate(cks):
+            out[k] = hists[i][:m] + [0] * (cx - m)
+
+    if remaining:
+        # Leftover ks (classes with < 3 ks never pack; empty for any real
+        # grid) ride the per-k fused path, over the undoubled text.
+        check_device_budget(perk_bytes(positions, remaining, n_members), device_budget_bytes,
+                            "the per-k sorts of a streamed group's leftover ks")
+        packed_arrs = pack_members(member_codes, device)
+        for k in remaining:
+            out[k] = occurrence_histogram_packed(packed_arrs, n_members, k, cs=cs, cx=cx)
+    return out

@@ -46,6 +46,20 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]),
+    "radix_sort_tile_elems": (ctypes.c_int, []),
+    "radix_sort_prepare": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]),
+    "radix_sort_passes": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]),
+    "radix_sort_finish": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p,
+    ]),
     "occ_scan_tile_elems": (ctypes.c_int, []),
     "occ_scan_bins_max": (ctypes.c_int, []),
     "occ_scan_launch": (ctypes.c_int, [

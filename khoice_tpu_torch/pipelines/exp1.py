@@ -50,10 +50,11 @@ def run_exp1(
     """groups: {group_num: [genome as list-of-record-seqs, ...]}; every
     sweep runs on `device`.
 
-    A group whose in-core sweep or per-k sorts exceed
-    `device_budget_bytes` (default
-    engine/streaming.default_device_budget_bytes) raises
-    DeviceBudgetExceeded: the streaming sweep is not ported yet.
+    A group whose in-core sweep would exceed `device_budget_bytes`
+    (default engine/streaming.default_device_budget_bytes) takes the
+    bounded-memory streaming sweep instead (equal results), as the JAX
+    package's exp1 does; a group whose per-k sorts would exceed it raises
+    DeviceBudgetExceeded.
 
     Returns {"step_5": csv_path, "step_9": csv_path}."""
     device = torch.device(device)
@@ -67,7 +68,17 @@ def run_exp1(
     }
 
     def sweep_members(member_codes, label):
+        """In-core shared-sort sweep, or the bounded-memory streaming
+        sweep when the group exceeds the device budget."""
         total = sum(int(c.shape[0]) + 1 for c in member_codes)
+        need = streaming.incore_sweep_bytes(total, ks_list, len(member_codes))
+        if need > budget:
+            log.info("%s: in-core sweep ~%.1f GiB exceeds device budget %.1f GiB — "
+                     "streaming (bounded memory)", label, need / 2**30, budget / 2**30)
+            return streaming.occurrence_histograms_sweep_streaming(
+                member_codes, ks_list, device, cs=union_cs, cx=hist_cx,
+                device_budget_bytes=budget,
+            )
         streaming.check_incore_budget(total, ks_list, len(member_codes), budget, label)
         return occurrence_histograms_sweep(
             member_codes, ks_list, device, cs=union_cs, cx=hist_cx

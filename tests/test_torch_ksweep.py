@@ -184,7 +184,7 @@ def test_per_k_path_and_budget_raise(nprng):
     need = incore_sweep_bytes(1000, K_GRID, 3)
     assert need == 2 * 1000 * 8 * (2 * 4 + 6)  # one packed KW=4 class
     check_incore_budget(1000, K_GRID, 3, need, "g")
-    with pytest.raises(DeviceBudgetExceeded, match="item 5"):
+    with pytest.raises(DeviceBudgetExceeded, match="stream under a budget"):
         check_incore_budget(1000, K_GRID, 3, need - 1, "g")
 
 

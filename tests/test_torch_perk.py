@@ -153,7 +153,7 @@ def test_sweep_sends_leftover_ks_to_the_per_k_path(nprng):
     assert need == 1000 * 8 * (2 * 2 + 6)  # k = 21: (key << 8) | gid in 2 words
     assert perk_bytes(1000, [31], 300) == 1000 * 8 * (2 * 3 + 6)  # 2 key words + gid
     check_incore_budget(1000, [11, 21], 3, need, "g")
-    with pytest.raises(DeviceBudgetExceeded, match="item 5"):
+    with pytest.raises(DeviceBudgetExceeded, match="stream under a budget"):
         check_incore_budget(1000, [11, 21], 3, need - 1, "g")
 
 

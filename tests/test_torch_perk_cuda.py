@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from khoice_tpu_torch.engine import occurrence as occ
-from khoice_tpu_torch.engine.sort import sort_words
 from khoice_tpu_torch.kernels import extract, occ_scan
+from khoice_tpu_torch.kernels.sort import sort_words
 
 SENT = 0xFFFFFFFF
 

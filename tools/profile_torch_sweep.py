@@ -9,7 +9,9 @@
    CUDA events: pack + upload, doubled text + extraction, sort, the scan
    kernel, the (d+p)//2 combine and copy back; beside them one
    `torch.sort` of the first word pair's folded int64 keys, the library
-   call the sort row of PERF.md is held against.
+   call the sort row of PERF.md is held against, and the radix sort's
+   passes (its varying byte digits) and its time by kernel (prepare,
+   count, scan, scatter, finish) under torch.profiler.
 2. With --db: each of --exp-types through the CLI entry point under
    torch.profiler (exp 2/3/4 share one work root, and exp0 runs there
    first, unprofiled); prints the wall time, the top device ops and the
@@ -37,7 +39,7 @@ K_GRID = list(range(7, 31)) + list(range(34, 50, 3))
 
 
 def bench_stages(reps: int) -> dict:
-    from khoice_tpu_torch.engine.ksweep import _extract_fwd_sweep, plan_sweep, sort_words
+    from khoice_tpu_torch.engine.ksweep import _doubled_elements, plan_sweep, sort_words
     from khoice_tpu_torch.engine.occurrence import pack_members
     from khoice_tpu_torch.kernels.ksweep_scan import scan_multi_k
 
@@ -51,9 +53,7 @@ def bench_stages(reps: int) -> dict:
         ev[0].record()
         codes, gids = pack_members(members, dev)
         ev[1].record()
-        rc = torch.where(codes < 4, codes ^ 3, codes).flip(0)
-        fwd, pay = _extract_fwd_sweep(torch.cat([codes, rc]),
-                                      torch.cat([gids, gids.flip(0)]), kmax, KW, packed)
+        fwd, pay = _doubled_elements(codes, gids, kmax, KW, packed)
         ev[2].record()
         words, pay = sort_words(fwd, pay)
         ev[3].record()
@@ -71,9 +71,7 @@ def bench_stages(reps: int) -> dict:
     out["total"] = sum(out[n] for n in names)
 
     codes, gids = pack_members(members, dev)
-    rc = torch.where(codes < 4, codes ^ 3, codes).flip(0)
-    fwd, _ = _extract_fwd_sweep(torch.cat([codes, rc]), torch.cat([gids, gids.flip(0)]),
-                                kmax, KW, packed)
+    fwd, _ = _doubled_elements(codes, gids, kmax, KW, packed)
     key = (fwd[0] - (1 << 31)) * (1 << 32) + fwd[1]
     times = []
     for _ in range(reps + 1):
@@ -84,6 +82,33 @@ def bench_stages(reps: int) -> dict:
         torch.cuda.synchronize()
         times.append(ev[0].elapsed_time(ev[1]))
     out["library_torch_sort_one_pair"] = float(np.median(times[1:]))
+    del fwd, key
+    out["radix_sort"] = {
+        label: sort_profile(sort_words, *_doubled_elements(codes, gids, *cls), reps)
+        for label, cls in (("bench class", (kmax, KW, packed)),
+                           ("unpacked class kmax 30", (30, 2, False)))}
+    return out
+
+
+def sort_profile(sort_words, words, payload, reps: int) -> dict:
+    """The radix sort's passes (the byte digits of `words` that take more
+    than one value) and ms per sort of each of its kernels: the
+    profiler's device time over `reps` sorts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    passes = sum(int(((word >> (8 * b)) & 255).unique().numel() > 1)
+                 for word in words for b in range(4))
+    sort_words(words, payload)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            sort_words(words, payload)
+        torch.cuda.synchronize()
+    out = {"passes": passes}
+    for ev in prof.key_averages():
+        for name in ("prepare", "count", "scan", "scatter", "finish"):
+            if f"{name}_kernel" in ev.key:
+                us = getattr(ev, "device_time_total", None) or ev.cuda_time_total
+                out[name] = out.get(name, 0.0) + us / 1e3 / reps
     return out
 
 
