@@ -17,9 +17,15 @@ Phases (any failure raises, so the exit code is non-zero):
        k = 31 and 49 (3 and 4 words), a table merge (2 words, 2^24 keys,
        most present twice, an arange payload: stability), and edge cases
        (n 0, 1, a tile +- 1, all keys equal, 1 and 5 words, half the keys
-       SENTINEL); `torch.sort(stable=True)` of the folded key plus the
-       gathers is timed beside it where one call computes the same
-       function (1-2 words);
+       SENTINEL, and all-ones elements interleaved with valid keys that
+       are all ones in every varying digit but not in the constant ones,
+       with only all-ones elements, and with one repeated valid key);
+       each sort's planned passes (the wrapper's) must equal those that
+       the plain statistics of its first pass predict, and the first
+       pass's statistics are held against their plain version on the
+       bench class and the per-k words; `torch.sort(stable=True)` of the
+       folded key plus the gathers is timed beside it where one call
+       computes the same function (1-2 words);
      - the scan kernel in each mode on a sorted doubled text: occ at
        exp1's shapes (8 x 2^21-base members on the 30-point grid; 64
        members; an unpacked class), the classification modes at the same
@@ -127,7 +133,7 @@ def build():
     name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
         m = re.search(r"entry function '.*?((?:occ_)?(?:tile_summaries|tile_carries|count_runs)"
-                      r"|extract_kernel|(?:prepare|count|scan|scatter|finish)_kernel)", line)
+                      r"|extract_kernel|(?:first|middle|last)_pass_kernel)", line)
         if m:
             name = m.group(1)
         elif name and "spill stores" in line:
@@ -222,21 +228,42 @@ def library_sort(words, payload):
     return words[:, perm], (None if payload is None else payload[perm])
 
 
-def varying_digits(words):
-    """The byte digits of int64 [W, n] words that take more than one
-    value: the radix sort's passes (it skips the others)."""
-    n = 0
-    for b in range(4):
-        d = (words >> (8 * b)) & 255
-        n += int((d.amin(1) != d.amax(1)).sum())
-    return n
+def planned_passes(label, words):
+    """The radix sort's plan for its last sort of `words` (the wrapper's)
+    against the plan that the plain statistics of its first pass give:
+    equal, or raise.  Returns "P passes (+ the all-ones bucket)"."""
+    from khoice_tpu_torch.kernels import sort as ksort
+
+    want = ksort.plan_passes(*ksort.sort_stats_reference(words))
+    if ksort.last_plan != want:
+        raise AssertionError(f"sort {label}: planned {ksort.last_plan}, the plain "
+                             f"statistics give {want}")
+    digits, ones = want
+    return (f"{len(digits)} planned passes of {4 * words.shape[0]} (plain statistics: "
+            f"{len(want[0])}){' + the all-ones bucket' if ones else ''}")
+
+
+def stats_vs_plain(label, words):
+    """The radix sort's first pass's statistics (digit histograms without
+    the all-ones elements, their count, whether they sit at the tail)
+    against their plain version, exactly."""
+    from khoice_tpu_torch.kernels import sort as ksort
+
+    hist, n_ones, at_tail = ksort.sort_stats(words)
+    want = ksort.sort_stats_reference(words)
+    if not (torch.equal(hist, want[0]) and (n_ones, at_tail) == want[1:]):
+        raise AssertionError(f"sort {label}: first-pass statistics differ from the plain "
+                             f"version ({n_ones}, {at_tail}) vs {want[1:]}")
+    print(f"sort {label}: first-pass statistics equal the plain version's ({n_ones} all-ones "
+          f"elements, at the tail: {at_tail})", flush=True)
 
 
 def sort_vs_plain(label, words, payload, timed=True, plain_reps=2):
     """The radix sort vs the plain sort on the same inputs, keys and
-    payload bit-equal; timed in turns, with the library call beside it
-    where one computes the same function.  Bound: one read and one write
-    of the int64 rows and payload."""
+    payload bit-equal, its plan equal to the plain statistics'; timed in
+    turns, with the library call beside it where one computes the same
+    function.  Bound: one read and one write of the int64 rows and
+    payload."""
     from khoice_tpu_torch.kernels import sort as ksort
 
     W, n = words.shape
@@ -245,10 +272,11 @@ def sort_vs_plain(label, words, payload, timed=True, plain_reps=2):
     err = max_err(got, want)
     if err:
         raise AssertionError(f"sort {label}: kernel != plain (max_abs_err {err})")
+    passes = planned_passes(label, words) if n else "no pass (n 0)"
     if not timed:
         print(f"sort {label} W={W} n={n}{' + payload' if payload is not None else ''}: "
-              f"equal (max_abs_err {err})", flush=True)
-        return {"max_abs_err": err}
+              f"equal (max_abs_err {err}); {passes}", flush=True)
+        return {"max_abs_err": err, "passes": passes}
     kern = lambda: ksort.sort_words(words, payload)  # noqa: E731
     plain = lambda: ksort.sort_words_reference(words, payload)  # noqa: E731
     p1 = time_ms(plain, plain_reps)
@@ -262,12 +290,12 @@ def sort_vs_plain(label, words, payload, timed=True, plain_reps=2):
         lib = time_ms(lambda: library_sort(words, payload), 10)
     bound = io_bound_ms((words, payload), got)
     print(f"sort {label} W={W} n={n}{' + payload' if payload is not None else ''}: equal "
-          f"(max_abs_err {err}); {varying_digits(words)} varying digits of {4 * W}; "
+          f"(max_abs_err {err}); {passes}; "
           f"kernel {k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms, "
           f"library {'%.3f ms' % lib if lib is not None else 'none'}, bound {bound:.3f} ms "
           "(bytes)", flush=True)
     return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "bound_ms": bound, "library_ms": lib}
+            "bound_ms": bound, "library_ms": lib, "passes": passes}
 
 
 def sort_kernel_vs_plain(bench, members96):
@@ -283,6 +311,7 @@ def sort_kernel_vs_plain(bench, members96):
     errs = []
     codes, gids = pack_members(bench, dev)
     words, _ = _doubled_elements(codes, gids, 49, 4, True)
+    stats_vs_plain("bench class", words)
     errs.append(sort_vs_plain("bench class 8x2^21 (kmax 49, packed)", words, None)["max_abs_err"])
     del words
     words, pay = _doubled_elements(codes, gids, 30, 2, False)
@@ -291,6 +320,7 @@ def sort_kernel_vs_plain(bench, members96):
     codes, gids = pack_members(members96, dev)
     for k in (31, 49):
         words = extract.extract_packed(codes, gids, k)
+        stats_vs_plain(f"per-k packed 96x2^20 k={k}", words)
         errs.append(sort_vs_plain(f"per-k packed 96x2^20 k={k}", words, None,
                                   plain_reps=1)["max_abs_err"])
         del words
@@ -308,14 +338,32 @@ def sort_kernel_vs_plain(bench, members96):
     errs.append(sort_vs_plain("table merge 2^24 keys", torch.cat([a, b], 1),
                               torch.arange(1 << 24, device=dev))["max_abs_err"])
     del a, b
-    tile = _build.load().radix_sort_tile_elems()
+    lib = _build.load()
     half = rand(4, 1 << 20)
     half[:, torch.from_numpy(rng.permutation(1 << 20)[: 1 << 19]).to(dev)] = 0xFFFFFFFF
-    for label, words in (("n 0", rand(4, 0)), ("n 1", rand(4, 1)), ("tile - 1", rand(4, tile - 1)),
-                         ("tile + 1", rand(3, tile + 1)),
+
+    def sentinels(words):
+        """A third of the elements all ones, interleaved."""
+        words[:, torch.from_numpy(rng.random(words.shape[1]) < 1 / 3).to(dev)] = 0xFFFFFFFF
+        return words
+
+    # valid keys of the per-k k = 31 layout (the top word's upper three
+    # bytes constant 0) that are all ones in every varying digit
+    near = rand(3, 1 << 20)
+    near[0] &= 0xFF
+    close = torch.from_numpy(rng.random(1 << 20) < 0.3).to(dev)
+    near[0, close] = 0xFF
+    near[1:, close] = 0xFFFFFFFF
+    for label, words in (("n 0", rand(4, 0)), ("n 1", rand(4, 1)),
+                         ("tile - 1", rand(4, lib.radix_sort_tile_elems(4, 1) - 1)),
+                         ("tile + 1", rand(3, lib.radix_sort_tile_elems(3, 1) + 1)),
                          ("all keys equal", rand(4, 1).expand(4, 1 << 20).contiguous()),
                          ("W 1, heavy ties", rand(1, 1 << 20, high=5000)),
-                         ("W 5", rand(5, 1 << 20)), ("half SENTINEL", half)):
+                         ("W 5", rand(5, 1 << 20)), ("half SENTINEL", half),
+                         ("near-SENTINEL keys among SENTINELs", sentinels(near)),
+                         ("only SENTINELs", torch.full((3, 1 << 20), 0xFFFFFFFF, device=dev)),
+                         ("one key among SENTINELs",
+                          sentinels(rand(2, 1).expand(2, 1 << 20).contiguous()))):
         errs.append(sort_vs_plain(label, words, torch.arange(words.shape[1], device=dev),
                                   timed=False)["max_abs_err"])
     record["max_abs_err"] = max([record["max_abs_err"]] + errs)

@@ -18,40 +18,60 @@
 // annotation depend on it), so the result, payload included, is fully
 // determined and equals the plain version's bit for bit.
 //
-// Passes:
-//   (a) prepare: one read of the int64 rows, written back as uint32
-//       scratch (half the bytes for every later pass), and every digit's
-//       global histogram (W words x 4 bytes x 256 buckets).
-//   (b) per digit that varies, least significant first:
-//       count   - each tile's 256 bucket counts (tile = TILE elements);
-//       scan    - an exclusive scan of the counts in digit-major order
-//                 (bucket b, then tile t), one block per bucket, its base
-//                 the global histogram's sum of the buckets below b;
-//       scatter - each tile ranks its elements by digit in input order
-//                 (warps in order, rounds in order, lanes ranked with
-//                 __match_any_sync and a per-warp bucket counter), then
-//                 moves all W words and the payload to
-//                 scan[b][t] + rank: a stable pass.
-//   (c) finish: the last buffer written back as int64 rows.
-// A digit whose histogram has one non-empty bucket is skipped: a stable
-// pass over it is the identity, so the skip is exact.  Packed master keys
-// (kmax 49, KW 4) keep 18 spare bits of word 3 zero between the key and
-// the 12 payload bits, so one of their 16 byte-digits never runs; table
-// keys skip their constant high bytes the same way (the per-k packed
-// words do not: their SENTINEL windows are all ones there).  The wrapper
-// reads the histogram back to choose the digits (one synchronisation per
-// sort).
+// Records.  Between passes every element is one record of R = W (+2 with
+// a payload) uint32 words, its key words then its payload's low and high
+// halves, records back to back (element-major), so a tile moves whole
+// records with 16-byte loads and a bucket's run in a tile is one
+// contiguous stretch of R * 4 bytes per element.
 //
-// What bounds it on an H100: bytes.  Each varying digit reads the digit's
-// word twice (count, scatter) and each element's W uint32 words (+ 8 B of
-// payload) once, and writes them once: ~(8 + 8W (+16)) B per element per
-// pass, plus the int64 read and write of (a) and (c); at the bench shape
-// (33.6M elements, W 4, 15 varying digits) ~23 GB, ~7 ms at 3.35 TB/s,
-// against the bound of one int64 read and write (0.64 ms).  Fewer passes
-// (11-bit digits), one-sweep decoupled look-back and keeping the words
-// uint32 between sorts are left for later work.
+// Kernels (one launch each):
+//   first pass  - reads the int64 rows once, writes the records, and takes
+//                 every byte digit's global histogram over the elements
+//                 that are not all ones (the SENTINEL windows, the largest
+//                 key), their count, and 1 + the index of the last element
+//                 that is not all ones;
+//   digit pass  - per digit of the wrapper's plan, least significant
+//                 first, a one-sweep pass with decoupled look-back
+//                 (Adinets & Merrill, "Onesweep", 2022): a block takes its
+//                 tile from an atomic counter (so every earlier tile has
+//                 started and the look-back cannot wait on a block that is
+//                 not running), copies the tile's records into shared
+//                 memory, ranks its elements stably by digit (warps own
+//                 contiguous slices taken 32 at a time; lanes with equal
+//                 digits found with nine ballots), publishes each bucket's
+//                 count (flag, pass number, count in one 64-bit word), looks
+//                 back over the earlier tiles for the elements of its
+//                 bucket before it, and writes the records in sorted order
+//                 from shared memory: consecutive lanes store consecutive
+//                 words of a bucket's run.  All-ones elements go to a 257th
+//                 bucket after bucket 255 in every pass, so they stay at the
+//                 tail in input order, where the stable plain sort puts
+//                 them; their tile prefix needs no look-back (the earlier
+//                 tiles' elements less their other buckets' prefixes);
+//   last pass   - the same pass over the plan's last digit, writing the
+//                 int64 rows and the payload directly.
+// The wrapper reads the first pass's statistics back (one synchronisation
+// per sort) and plans the digits: those on which the elements that are not
+// all ones fall into more than one bucket (kernels/sort.py::plan_passes).
+// A stable pass over any other digit is the identity on them, so the skip
+// is exact.  The per-k words (SENTINEL windows, all ones) run 9 passes at
+// k = 31 and 14 at k = 49 instead of 12 and 16; packed master keys skip
+// their 18 spare bits' constant byte.
 //
-// All element offsets are 64-bit (W * n passes 2^31 at the in-core sizes).
+// What bounds it on an H100: bytes.  A digit pass reads and writes each
+// record once (2 R * 4 B per element, 32 B at the bench shape: 33.6M
+// elements, W 4, 15 passes) and the first and last pass move the int64
+// rows once each; ~18 GB at the bench shape, ~5.5 ms at 3.35 TB/s, against
+// the bound of one int64 read and write (0.64 ms).  A digit pass runs at
+// ~60% of that rate (PERF.md): the limit is the memory system's rate for a
+// tile's 256 scattered bucket runs, with the in-block work hidden behind
+// the two or three tiles an SM holds.  Smaller tiles (shorter runs),
+// larger ones (fewer tiles per SM) and 512-thread blocks (less in-block
+// time, same total) were no faster.  Keeping the words uint32 between the
+// extraction, the sort and the scan is later work.
+//
+// Limits: n < 2^31 (element indices are 32-bit; a tile-local index fits
+// 16 bits); the status counts have 40 bits.
 
 #include <cuda_runtime.h>
 
@@ -59,84 +79,67 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int NT = 256;               // threads of the count and scatter blocks
+constexpr int NT = 256;                // threads of every block
 constexpr int NWARPS = NT / 32;
-constexpr int ITEMS = 16;             // elements per thread in a tile
-constexpr int TILE = NT * ITEMS;      // elements per tile
-constexpr int RADIX = 256;            // 8-bit digits
-constexpr int MAX_W = 5;              // key words
-constexpr int SCAN_NT = 256;          // threads of a scan block
-constexpr int SCAN_ITEMS = 4;         // counts per thread per scan step
+constexpr int RADIX = 256;             // 8-bit digits
+constexpr int NB = RADIX + 1;          // buckets: the digit's values, then the all-ones elements
+constexpr unsigned SENT_BUCKET = RADIX;
+constexpr unsigned NO_BUCKET = 511u;   // past the end of the tile (9 bits, like every bucket)
+constexpr int BUCKET_BITS = 9;
+constexpr int MAX_W = 5;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned NO_DIGIT = 0xffffffffu;
+constexpr unsigned ONES = 0xffffffffu;
+constexpr unsigned NO_RANK = 0xffffffffu;
 
-static_assert(NT == RADIX && NT == SCAN_NT, "one thread per bucket in the count and scatter blocks");
-static_assert(TILE <= (1 << 24), "a tile-local position fits 24 bits");
-static_assert(ITEMS * 32 <= (1 << 24), "a rank in the warp fits 24 bits");
+// A status word: flag (2 bits: aggregate, inclusive prefix) | pass number
+// (22 bits) | count (40 bits).  A word of another pass reads as not ready,
+// so one zeroed array serves every pass of a sort.
+constexpr int COUNT_BITS = 40;
+constexpr u64 COUNT_MASK = (1ull << COUNT_BITS) - 1;
+constexpr u64 EPOCH_MASK = (1ull << 22) - 1;
+constexpr u64 FLAG_AGG = 1ull << 62;
+constexpr u64 FLAG_INC = 2ull << 62;
 
-// h[d] += 1 for each valid lane; a warp whose valid lanes share one digit
-// (constant bytes, runs of equal keys) adds with one atomic.
-__device__ __forceinline__ void add_digit(unsigned* h, unsigned d, bool valid) {
-  const unsigned ball = __ballot_sync(FULL, valid);
+static_assert(NT == RADIX, "one thread per digit bucket");
+
+// Elements per thread of a digit pass: tiles of 8192, 4096 or 2048
+// elements, so a tile's records take at most 64 KB of shared memory and
+// two or three blocks fit an SM.
+template <int R>
+struct Tile {
+  static constexpr int ITEMS = R <= 2 ? 32 : (R <= 4 ? 16 : 8);
+  static constexpr int ELEMS = NT * ITEMS;
+  // dynamic shared memory: the records, then one word per sorted position
+  static constexpr int SMEM = ELEMS * R * 4 + ELEMS * 4;
+  static_assert(ELEMS <= (1 << 16), "a tile-local index fits 16 bits");
+  static_assert(ITEMS * 32 < (1 << (32 - BUCKET_BITS)), "a rank in the warp fits its field");
+  static_assert(ELEMS * R % 4 == 0, "a full tile is whole 16-byte vectors");
+};
+
+__device__ __forceinline__ u64 load_status(const u64* p) {
+  return *(const volatile u64*)p;
+}
+
+__device__ __forceinline__ void store_status(u64* p, u64 v) {
+  *(volatile u64*)p = v;
+}
+
+// h[d] += 1 for each counted lane; a warp whose counted lanes share one
+// digit (constant bytes, runs of equal keys) adds with one atomic.
+__device__ __forceinline__ void add_digit(unsigned* h, unsigned d, bool counted) {
+  const unsigned ball = __ballot_sync(FULL, counted);
   if (ball == 0u) return;
   const int first = __ffs(ball) - 1;
   const unsigned d0 = __shfl_sync(FULL, d, first);
-  if (__all_sync(FULL, !valid || d == d0)) {
+  if (__all_sync(FULL, !counted || d == d0)) {
     if ((int)(threadIdx.x & 31) == first) atomicAdd(&h[d0], (unsigned)__popc(ball));
-  } else if (valid) {
+  } else if (counted) {
     atomicAdd(&h[d], 1u);
   }
 }
 
-// (a) int64 rows -> uint32 rows, and every digit's histogram into
-// hist[(word * 4 + byte) * 256 + bucket].
-__global__ void __launch_bounds__(NT) prepare_kernel(const long long* __restrict__ in,
-                                                     unsigned* __restrict__ keys, long long n,
-                                                     int W, u64* __restrict__ hist) {
-  __shared__ unsigned h[MAX_W * 4 * RADIX];
-  const int nh = W * 4 * RADIX;
-  for (int j = threadIdx.x; j < nh; j += NT) h[j] = 0u;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * NT;
-  for (long long base = (long long)blockIdx.x * NT; base < n; base += stride) {
-    const long long i = base + threadIdx.x;
-    const bool valid = i < n;
-    for (int j = 0; j < W; ++j) {
-      unsigned v = 0u;
-      if (valid) {
-        v = (unsigned)in[(long long)j * n + i];
-        keys[(long long)j * n + i] = v;
-      }
-#pragma unroll
-      for (int b = 0; b < 4; ++b) add_digit(h + (j * 4 + b) * RADIX, (v >> (8 * b)) & 255u, valid);
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < nh; j += NT)
-    if (h[j]) atomicAdd(hist + j, (u64)h[j]);
-}
-
-// (b1) counts[b * n_tiles + t] = elements of tile t whose digit is b.
-__global__ void __launch_bounds__(NT) count_kernel(const unsigned* __restrict__ word, long long n,
-                                                   int shift, u64* __restrict__ counts,
-                                                   int n_tiles) {
-  __shared__ unsigned h[RADIX];
-  h[threadIdx.x] = 0u;
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * TILE;
-#pragma unroll 4
-  for (int r = 0; r < ITEMS; ++r) {
-    const long long i = base + (long long)r * NT + threadIdx.x;
-    const bool valid = i < n;
-    const unsigned d = valid ? (__ldg(word + i) >> shift) & 255u : 0u;
-    add_digit(h, d, valid);
-  }
-  __syncthreads();
-  counts[(long long)threadIdx.x * n_tiles + blockIdx.x] = h[threadIdx.x];
-}
-
 // Exclusive prefix of x over the block's threads; `total` gets the block's
-// sum.  ws holds SCAN_NT / 32 values.
+// sum.  ws holds NWARPS values.
 __device__ __forceinline__ u64 block_exclusive_scan(u64 x, u64& total, u64* ws) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   u64 inc = x;
@@ -150,7 +153,7 @@ __device__ __forceinline__ u64 block_exclusive_scan(u64 x, u64& total, u64* ws) 
   __syncthreads();
   u64 below = 0, all = 0;
 #pragma unroll
-  for (int w = 0; w < SCAN_NT / 32; ++w) {
+  for (int w = 0; w < NWARPS; ++w) {
     const u64 s = ws[w];
     if (w < warp) below += s;
     all += s;
@@ -159,229 +162,309 @@ __device__ __forceinline__ u64 block_exclusive_scan(u64 x, u64& total, u64* ws) 
   return below + inc - x;
 }
 
-// (b2) Block b: row b of the counts (one count per tile) becomes each
-// tile's first output slot for bucket b, in place.
-__global__ void __launch_bounds__(SCAN_NT) scan_kernel(u64* __restrict__ counts,
-                                                       const u64* __restrict__ digit_hist,
-                                                       int n_tiles) {
-  __shared__ u64 ws[SCAN_NT / 32];
-  const int b = blockIdx.x;
-  u64 below = 0;
-  for (int v = threadIdx.x; v < b; v += SCAN_NT) below += digit_hist[v];
-  u64 carry;
-  block_exclusive_scan(below, carry, ws);
-  u64* row = counts + (long long)b * n_tiles;
-  for (long long t0 = 0; t0 < n_tiles; t0 += SCAN_NT * SCAN_ITEMS) {
-    const long long t = t0 + (long long)threadIdx.x * SCAN_ITEMS;
-    u64 v[SCAN_ITEMS], sum = 0;
-#pragma unroll
-    for (int e = 0; e < SCAN_ITEMS; ++e) {
-      v[e] = t + e < n_tiles ? row[t + e] : 0;
-      sum += v[e];
-    }
-    u64 step;
-    u64 at = carry + block_exclusive_scan(sum, step, ws);
-#pragma unroll
-    for (int e = 0; e < SCAN_ITEMS; ++e) {
-      if (t + e < n_tiles) row[t + e] = at;
-      at += v[e];
-    }
-    carry += step;
-  }
-}
-
-// Moves one 32-bit value per element of the tile to its sorted place:
-// each element writes its value to its tile-local sorted position in
-// shared memory, then consecutive threads write consecutive sorted
-// positions out, so a warp's stores fall in one or two bucket runs
-// (coalesced) instead of 32 scattered buckets.
-template <typename Load, typename Store>
-__device__ __forceinline__ void stage_out(const unsigned (&local_digit)[ITEMS], long long wbase,
-                                          int lane, int valid_n, unsigned* stage,
-                                          const unsigned char* stage_digit,
-                                          const unsigned* bucket_start, const u64* tile_slot,
-                                          Load load, Store store) {
-#pragma unroll
-  for (int r = 0; r < ITEMS; ++r)
-    if (local_digit[r] != NO_DIGIT) stage[local_digit[r] >> 8] = load(wbase + r * 32 + lane);
-  __syncthreads();
-  for (int q = threadIdx.x; q < valid_n; q += NT) {
-    const unsigned d = stage_digit[q];
-    store((long long)(tile_slot[d] + (q - bucket_start[d])), stage[q]);
-  }
-  __syncthreads();
-}
-
-// (b3) The stable scatter of tile blockIdx.x.  Warp w owns the tile's
-// elements [w * ITEMS * 32, (w + 1) * ITEMS * 32), taken 32 at a time in
-// order, so ranking by (warp, round, lane) is ranking in input order.
-// An element's tile-local sorted position is its bucket's start in the
-// tile + the bucket's elements in earlier warps + its rank in its warp;
-// its global position is the bucket's slot for this tile + the same
-// offset past the bucket's start.
+// The first pass: int64 rows (and payload) -> records, and into stats:
+// [0, W * 4 * 256) every digit's histogram (word * 4 + byte) * 256 +
+// bucket over the elements that are not all ones, then their count of
+// all-ones elements, then 1 + the last index of an element that is not.
 template <int W, bool PAY>
-__global__ void __launch_bounds__(NT) scatter_kernel(const unsigned* __restrict__ src,
-                                                     unsigned* __restrict__ dst,
-                                                     const u64* __restrict__ psrc,
-                                                     u64* __restrict__ pdst, long long n,
-                                                     int word, int shift,
-                                                     const u64* __restrict__ slots, int n_tiles) {
-  __shared__ unsigned whist[NWARPS][RADIX];  // per warp: its elements per bucket so far
-  __shared__ u64 tile_slot[RADIX];
-  __shared__ unsigned bucket_start[RADIX];
+__global__ void __launch_bounds__(NT) first_pass_kernel(const long long* __restrict__ words,
+                                                        const long long* __restrict__ pay,
+                                                        unsigned* __restrict__ rec, unsigned n,
+                                                        u64* __restrict__ stats) {
+  constexpr int R = W + (PAY ? 2 : 0);
+  __shared__ unsigned h[W * 4 * RADIX];
+  __shared__ unsigned stage[NT * R];
+  for (int j = threadIdx.x; j < W * 4 * RADIX; j += NT) h[j] = 0u;
+  unsigned n_ones = 0, end = 0;
+  __syncthreads();
+  for (unsigned base = blockIdx.x * NT; base < n; base += gridDim.x * NT) {
+    const unsigned i = base + threadIdx.x;
+    const bool valid = i < n;
+    unsigned v[W];
+    bool ones = true;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      v[j] = valid ? (unsigned)words[(u64)j * n + i] : 0u;
+      ones &= v[j] == ONES;
+      stage[threadIdx.x * R + j] = v[j];
+    }
+    if (PAY && valid) {
+      const u64 p = (u64)pay[i];
+      stage[threadIdx.x * R + W] = (unsigned)p;
+      stage[threadIdx.x * R + W + 1] = (unsigned)(p >> 32);
+    }
+    const bool counted = valid && !ones;
+    n_ones += valid && ones;
+    if (counted) end = i + 1;
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) add_digit(h + (j * 4 + b) * RADIX, (v[j] >> (8 * b)) & 255u, counted);
+    __syncthreads();
+    const int m = (int)(n - base < NT ? n - base : NT) * R;
+    unsigned* o = rec + (u64)base * R;
+    for (int f = threadIdx.x; f < m; f += NT) o[f] = stage[f];
+    __syncthreads();
+  }
+  for (int j = threadIdx.x; j < W * 4 * RADIX; j += NT)
+    if (h[j]) atomicAdd(stats + j, (u64)h[j]);
+  n_ones = __reduce_add_sync(FULL, n_ones);
+  end = __reduce_max_sync(FULL, end);
+  if ((threadIdx.x & 31) == 0) {
+    if (n_ones) atomicAdd(stats + W * 4 * RADIX, (u64)n_ones);
+    if (end) atomicMax(stats + W * 4 * RADIX + 1, (u64)end);
+  }
+}
+
+// One digit pass over tile `tile counter` (see the header).  Reads records
+// from src; writes records to dst or, in the last pass, the int64 rows to
+// out and the payload to pout.  hist: the digit's 256 global counts over
+// the elements that are not all ones; ones: whether all-ones elements
+// take the 257th bucket (the sort has some).
+template <int W, bool PAY, bool LAST>
+__device__ __forceinline__ void digit_pass(const unsigned* __restrict__ src,
+                                           unsigned* __restrict__ dst, long long* __restrict__ out,
+                                           long long* __restrict__ pout, unsigned n, int word,
+                                           int shift, bool ones, const u64* __restrict__ hist,
+                                           u64* status, unsigned* tile_counter, unsigned epoch) {
+  constexpr int R = W + (PAY ? 2 : 0);
+  constexpr int ITEMS = Tile<R>::ITEMS, ELEMS = Tile<R>::ELEMS;
+  __shared__ unsigned whist[NWARPS][NB];  // per warp: its elements per bucket, then those of the warps before it
+  __shared__ unsigned bstart[NB];         // each bucket's first sorted position in the tile
+  __shared__ unsigned slot[NB];           // each bucket's first global position for this tile
   __shared__ u64 ws[NWARPS];
-  __shared__ unsigned stage[TILE];
-  __shared__ unsigned char stage_digit[TILE];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ unsigned tile_id;
+  extern __shared__ uint4 dyn[];
+  unsigned* buf = (unsigned*)dyn;  // the tile's records, in input order
+  unsigned* info = buf + ELEMS * R;  // per sorted position: (bucket << 16) | input index
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (tid == 0) tile_id = atomicAdd(tile_counter, 1u);
+  for (int j = tid; j < NWARPS * NB; j += NT) (&whist[0][0])[j] = 0u;
+  __syncthreads();
+  const unsigned t = tile_id;
+  const unsigned tile_base = t * (unsigned)ELEMS;
+  const int valid = (int)(n - tile_base < (unsigned)ELEMS ? n - tile_base : (unsigned)ELEMS);
+
+  // 1. the tile's records into shared memory, 16 bytes per copy
+  {
+    const unsigned* s = src + (u64)tile_base * R;
+    const int nw = valid * R, n4 = nw >> 2;
+    const unsigned sbase = (unsigned)__cvta_generic_to_shared(buf);
+    for (int v = tid; v < n4; v += NT)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sbase + 16u * v),
+                   "l"(s + 4 * v));
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int v = 4 * n4 + tid; v < nw; v += NT) buf[v] = s[v];
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // 2. rank: warp w owns the tile's elements [w * ITEMS * 32, (w + 1) *
+  // ITEMS * 32), taken 32 at a time in order, so ranking by (warp, round,
+  // lane) is ranking in input order: a stable pass.  Every round's equal
+  // lanes first (independent ballots), then the rounds' counts in order.
   const unsigned below_lane = (1u << lane) - 1u;
-  const long long tile_base = (long long)blockIdx.x * TILE;
-  const long long wbase = tile_base + (long long)warp * (ITEMS * 32);
-  const int valid_n = (int)(n - tile_base < TILE ? n - tile_base : TILE);
-  const unsigned* digit_word = src + (long long)word * n;
-  for (int v = lane; v < RADIX; v += 32) whist[warp][v] = 0u;
-  __syncwarp();
-  unsigned rank_digit[ITEMS];  // (rank in the warp << 8) | digit, NO_DIGIT past the end
+  unsigned rank_bucket[ITEMS];  // bucket, then (rank in the warp << 9) | bucket; NO_RANK past the end
+  unsigned peer_of[ITEMS];      // the round's lanes with the same bucket
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
-    const long long i = wbase + r * 32 + lane;
-    const bool valid = i < n;
-    const unsigned d = valid ? (__ldg(digit_word + i) >> shift) & 255u : RADIX;
-    const unsigned peers = __match_any_sync(FULL, d);
-    const unsigned before = valid ? whist[warp][d] : 0u;
+    const int e = (warp * ITEMS + r) * 32 + lane;
+    unsigned d = NO_BUCKET;
+    if (e < valid) {
+      const unsigned* x = buf + e * R;
+      d = (x[word] >> shift) & 255u;
+      if (ones && d == 255u) {  // an all-ones element has 255 in every digit
+        bool all = true;
+#pragma unroll
+        for (int j = 0; j < W; ++j) all &= x[j] == ONES;
+        if (all) d = SENT_BUCKET;
+      }
+    }
+    unsigned peers = FULL;
+#pragma unroll
+    for (int b = 0; b < BUCKET_BITS; ++b) {
+      const unsigned bit = __ballot_sync(FULL, (d >> b) & 1u);
+      peers &= ((d >> b) & 1u) ? bit : ~bit;
+    }
+    rank_bucket[r] = d;
+    peer_of[r] = peers;
+  }
+#pragma unroll
+  for (int r = 0; r < ITEMS; ++r) {
+    const unsigned d = rank_bucket[r], peers = peer_of[r];
+    const unsigned before = d != NO_BUCKET ? whist[warp][d] : 0u;
     __syncwarp();
-    if (valid && (peers & below_lane) == 0u) whist[warp][d] = before + __popc(peers);
+    if (d != NO_BUCKET && (peers & below_lane) == 0u) whist[warp][d] = before + __popc(peers);
     __syncwarp();
-    rank_digit[r] = valid ? ((before + __popc(peers & below_lane)) << 8) | d : NO_DIGIT;
+    rank_bucket[r] = d == NO_BUCKET ? NO_RANK
+                                    : ((before + __popc(peers & below_lane)) << BUCKET_BITS) | d;
   }
   __syncthreads();
-  {  // per bucket: the elements of the warps before each warp, the bucket's
-     // start in the tile, and the tile's global slot
-    const int v = threadIdx.x;
-    unsigned s = 0u;
+
+  // 3. per bucket b (thread b; thread 0 also the all-ones bucket): the
+  // warps' offsets and the tile's count, published at once; then one scan
+  // gives the buckets' starts in the tile and their global bases
+  const int b = tid;
+  unsigned c = 0;
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w) {
+    const unsigned x = whist[w][b];
+    whist[w][b] = c;
+    c += x;
+  }
+  if (tid == 0) {
+    unsigned s = 0;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
-      const unsigned c = whist[w][v];
-      whist[w][v] = s;
-      s += c;
+      const unsigned x = whist[w][SENT_BUCKET];
+      whist[w][SENT_BUCKET] = s;
+      s += x;
     }
-    u64 tile_total;
-    bucket_start[v] = (unsigned)block_exclusive_scan(s, tile_total, ws);
-    tile_slot[v] = slots[(long long)v * n_tiles + blockIdx.x];
   }
+  u64* my_status = status + (u64)t * RADIX + b;
+  const u64 tag = (u64)epoch << COUNT_BITS;
+  store_status(my_status, (t == 0 ? FLAG_INC : FLAG_AGG) | tag | c);
+  // (global count << 16) | tile count: the tile's counts sum to <= ELEMS
+  // < 2^16, so the two scans do not mix
+  u64 totals;
+  const u64 pre = block_exclusive_scan((hist[b] << 16) | c, totals, ws);
+  bstart[b] = (unsigned)(pre & 0xffffu);
+  if (tid == 0) bstart[SENT_BUCKET] = (unsigned)(totals & 0xffffu);
   __syncthreads();
-  unsigned local_digit[ITEMS];  // (tile-local sorted position << 8) | digit
+
+  // 4. each element's sorted position in the tile
 #pragma unroll
   for (int r = 0; r < ITEMS; ++r) {
-    local_digit[r] = NO_DIGIT;
-    if (rank_digit[r] == NO_DIGIT) continue;
-    const unsigned d = rank_digit[r] & 255u;
-    const unsigned local = bucket_start[d] + whist[warp][d] + (rank_digit[r] >> 8);
-    stage_digit[local] = (unsigned char)d;
-    local_digit[r] = (local << 8) | d;
+    if (rank_bucket[r] == NO_RANK) continue;
+    const unsigned d = rank_bucket[r] & ((1u << BUCKET_BITS) - 1u);
+    const unsigned q = bstart[d] + whist[warp][d] + (rank_bucket[r] >> BUCKET_BITS);
+    info[q] = (d << 16) | (unsigned)((warp * ITEMS + r) * 32 + lane);
   }
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    const unsigned* s_row = src + (long long)j * n;
-    unsigned* d_row = dst + (long long)j * n;
-    stage_out(local_digit, wbase, lane, valid_n, stage, stage_digit, bucket_start, tile_slot,
-              [&](long long i) { return s_row[i]; },
-              [&](long long pos, unsigned v) { d_row[pos] = v; });
+
+  // 5. look back: bucket b's elements in the tiles before this one
+  u64 before = 0;
+  if (t > 0) {
+    for (unsigned tt = t - 1;; --tt) {
+      u64 s;
+      do {
+        s = load_status(status + (u64)tt * RADIX + b);
+      } while (((s >> COUNT_BITS) & EPOCH_MASK) != epoch);
+      before += s & COUNT_MASK;
+      if (s & FLAG_INC) break;
+    }
+    store_status(my_status, FLAG_INC | tag | (before + c));
   }
-  if (PAY) {  // the 64-bit payload as its two 32-bit halves
-    const unsigned* p32 = (const unsigned*)psrc;
-    unsigned* q32 = (unsigned*)pdst;
+  slot[b] = (unsigned)((pre >> 16) + before);
+  if (ones) {
+    // the all-ones elements of the earlier tiles: their elements (all
+    // full tiles) less those of the other buckets; after all the others
+    u64 others;
+    block_exclusive_scan(before, others, ws);
+    if (tid == 0) slot[SENT_BUCKET] = (unsigned)((totals >> 16) + (u64)tile_base - others);
+  }
+  __syncthreads();
+
+  // 6. out in sorted order
+  if constexpr (LAST) {
+    for (int q = tid; q < valid; q += NT) {
+      const unsigned x = info[q], d = x >> 16;
+      const unsigned* y = buf + (x & 0xffffu) * R;
+      const unsigned g = slot[d] + (unsigned)q - bstart[d];
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
-      stage_out(local_digit, wbase, lane, valid_n, stage, stage_digit, bucket_start, tile_slot,
-                [&](long long i) { return p32[2 * i + half]; },
-                [&](long long pos, unsigned v) { q32[2 * pos + half] = v; });
+      for (int j = 0; j < W; ++j) out[(u64)j * n + g] = (long long)y[j];
+      if constexpr (PAY) pout[g] = (long long)(((u64)y[W + 1] << 32) | y[W]);
+    }
+  } else {
+    // 32 sorted records per warp step; lane l stores words l, l + 32, ...
+    // of their R * 32 words, so a step's stores are runs of consecutive
+    // words
+    for (int c0 = warp * 32; c0 < valid; c0 += NT) {
+      const int q = c0 + lane;
+      unsigned e = 0, g = 0;
+      if (q < valid) {
+        const unsigned x = info[q], d = x >> 16;
+        e = x & 0xffffu;
+        g = slot[d] + (unsigned)q - bstart[d];
+      }
+      const int live = valid - c0 < 32 ? valid - c0 : 32;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int f = k * 32 + lane, from = f / R, j = f - from * R;
+        const unsigned es = __shfl_sync(FULL, e, from), gs = __shfl_sync(FULL, g, from);
+        if (from < live) dst[(u64)gs * R + j] = buf[es * R + j];
+      }
+    }
   }
 }
 
-// (c) uint32 rows -> int64 rows; the payload copied.
-__global__ void finish_kernel(const unsigned* __restrict__ keys, const u64* __restrict__ psrc,
-                              long long* __restrict__ out, long long* __restrict__ pout,
-                              long long n, int W) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    for (int j = 0; j < W; ++j) out[(long long)j * n + i] = (long long)keys[(long long)j * n + i];
-    if (pout) pout[i] = (long long)psrc[i];
-  }
+template <int W, bool PAY>
+__global__ void __launch_bounds__(NT) middle_pass_kernel(const unsigned* __restrict__ src,
+                                                         unsigned* __restrict__ dst, unsigned n,
+                                                         int word, int shift, bool ones,
+                                                         const u64* __restrict__ hist,
+                                                         u64* status, unsigned* tile_counter,
+                                                         unsigned epoch) {
+  digit_pass<W, PAY, false>(src, dst, nullptr, nullptr, n, word, shift, ones, hist, status,
+                            tile_counter, epoch);
 }
 
-int grid_for(long long n, int per_sm) {
+template <int W, bool PAY>
+__global__ void __launch_bounds__(NT) last_pass_kernel(const unsigned* __restrict__ src,
+                                                       long long* __restrict__ out,
+                                                       long long* __restrict__ pout, unsigned n,
+                                                       int word, int shift, bool ones,
+                                                       const u64* __restrict__ hist,
+                                                       u64* status, unsigned* tile_counter,
+                                                       unsigned epoch) {
+  digit_pass<W, PAY, true>(src, nullptr, out, pout, n, word, shift, ones, hist, status,
+                           tile_counter, epoch);
+}
+
+int sm_count() {
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long blocks = (n + NT - 1) / NT;
-  return (int)(blocks < (long long)sms * per_sm ? blocks : (long long)sms * per_sm);
+  return sms;
 }
 
 template <int W, bool PAY>
-void launch_scatter(const unsigned* src, unsigned* dst, const u64* psrc, u64* pdst, long long n,
-                    int word, int shift, const u64* slots, int n_tiles, cudaStream_t stream) {
-  scatter_kernel<W, PAY><<<n_tiles, NT, 0, stream>>>(src, dst, psrc, pdst, n, word, shift, slots,
-                                                     n_tiles);
-}
-
-template <bool PAY>
-void scatter_w(int W, const unsigned* src, unsigned* dst, const u64* psrc, u64* pdst, long long n,
-               int word, int shift, const u64* slots, int n_tiles, cudaStream_t stream) {
-  switch (W) {
-    case 1: launch_scatter<1, PAY>(src, dst, psrc, pdst, n, word, shift, slots, n_tiles, stream); break;
-    case 2: launch_scatter<2, PAY>(src, dst, psrc, pdst, n, word, shift, slots, n_tiles, stream); break;
-    case 3: launch_scatter<3, PAY>(src, dst, psrc, pdst, n, word, shift, slots, n_tiles, stream); break;
-    case 4: launch_scatter<4, PAY>(src, dst, psrc, pdst, n, word, shift, slots, n_tiles, stream); break;
-    default: launch_scatter<5, PAY>(src, dst, psrc, pdst, n, word, shift, slots, n_tiles, stream); break;
-  }
-}
-
-}  // namespace
-
-extern "C" {
-
-int radix_sort_tile_elems() { return TILE; }
-
-// (a): words int64 [W, n] -> keys uint32 [W, n]; hist u64 [W * 4 * 256],
-// zeroed by the caller, gets every digit's histogram.
-int radix_sort_prepare(const long long* words, long long n, int W, unsigned* keys, u64* hist,
-                       cudaStream_t stream) {
-  if (W < 1 || W > MAX_W || n < 1) return (int)cudaErrorInvalidValue;
-  prepare_kernel<<<grid_for(n, 4), NT, 0, stream>>>(words, keys, n, W, hist);
+int first_pass(const long long* words, const long long* pay, unsigned* rec, unsigned n,
+               u64* stats, cudaStream_t stream) {
+  const long long blocks = ((long long)n + NT - 1) / NT, cap = (long long)sm_count() * 4;
+  first_pass_kernel<W, PAY><<<(int)(blocks < cap ? blocks : cap), NT, 0, stream>>>(words, pay, rec,
+                                                                                  n, stats);
   return (int)cudaGetLastError();
 }
 
-// (b): one stable pass per digit of digits[0..n_digits) (least significant
-// first; digit = word * 4 + byte, byte 0 the least significant).  Pass p
-// reads keys_a (p even) or keys_b (p odd) and writes the other; the
-// payload (pay_in null: none) is read from pay_in by pass 0 and written
-// to pay_a (p even) or pay_b (p odd).  slots: u64 [256 * n_tiles].
-int radix_sort_passes(unsigned* keys_a, unsigned* keys_b, const long long* pay_in,
-                      long long* pay_a, long long* pay_b, long long n, int W, const int* digits,
-                      int n_digits, const u64* hist, u64* slots, cudaStream_t stream) {
-  if (W < 1 || W > MAX_W || n < 1) return (int)cudaErrorInvalidValue;
-  const long long n_tiles = (n + TILE - 1) / TILE;
-  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  for (int p = 0; p < n_digits; ++p) {
+// Passes [begin, end) of the plan; pass p reads a (p even) or b (p odd)
+// and writes the other, the plan's last pass (p == n_digits - 1) the rows
+// out and pout.  counters: one zeroed tile counter per pass.
+template <int W, bool PAY>
+int passes(const unsigned* a, unsigned* b, long long* out, long long* pout, unsigned n,
+           const int* digits, int n_digits, int begin, int end, bool ones, const u64* stats,
+           u64* status, unsigned* counters, cudaStream_t stream) {
+  constexpr int R = W + (PAY ? 2 : 0);
+  const unsigned n_tiles = (n + Tile<R>::ELEMS - 1) / Tile<R>::ELEMS;
+  cudaError_t err = cudaFuncSetAttribute(middle_pass_kernel<W, PAY>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<R>::SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(last_pass_kernel<W, PAY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<R>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  for (int p = begin; p < end; ++p) {
     const int digit = digits[p];
     if (digit < 0 || digit >= W * 4) return (int)cudaErrorInvalidValue;
     const int word = digit / 4, shift = 8 * (digit % 4);
-    const unsigned* src = p % 2 ? keys_b : keys_a;
-    unsigned* dst = p % 2 ? keys_a : keys_b;
-    count_kernel<<<(int)n_tiles, NT, 0, stream>>>(src + (long long)word * n, n, shift, slots,
-                                                  (int)n_tiles);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    scan_kernel<<<RADIX, SCAN_NT, 0, stream>>>(slots, hist + (long long)digit * RADIX,
-                                               (int)n_tiles);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (pay_in) {
-      const u64* psrc = (const u64*)(p == 0 ? pay_in : (p % 2 ? pay_a : pay_b));
-      u64* pdst = (u64*)(p % 2 ? pay_b : pay_a);
-      scatter_w<true>(W, src, dst, psrc, pdst, n, word, shift, slots, (int)n_tiles, stream);
+    const unsigned* src = p % 2 ? b : a;
+    const u64* hist = stats + (u64)digit * RADIX;
+    if (p == n_digits - 1) {
+      last_pass_kernel<W, PAY><<<n_tiles, NT, Tile<R>::SMEM, stream>>>(
+          src, out, pout, n, word, shift, ones, hist, status, counters + p, (unsigned)p + 1);
     } else {
-      scatter_w<false>(W, src, dst, nullptr, nullptr, n, word, shift, slots, (int)n_tiles, stream);
+      middle_pass_kernel<W, PAY><<<n_tiles, NT, Tile<R>::SMEM, stream>>>(
+          src, p % 2 ? (unsigned*)a : b, n, word, shift, ones, hist, status, counters + p,
+          (unsigned)p + 1);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -389,12 +472,82 @@ int radix_sort_passes(unsigned* keys_a, unsigned* keys_b, const long long* pay_i
   return (int)cudaSuccess;
 }
 
-// (c): keys uint32 [W, n] -> out int64 [W, n]; pay (null: none) -> pout.
-int radix_sort_finish(const unsigned* keys, const long long* pay, long long* out, long long* pout,
-                      long long n, int W, cudaStream_t stream) {
-  if (W < 1 || W > MAX_W || n < 1) return (int)cudaErrorInvalidValue;
-  finish_kernel<<<grid_for(n, 8), NT, 0, stream>>>(keys, (const u64*)pay, out, pout, n, W);
-  return (int)cudaGetLastError();
+template <int W>
+int tile_elems(bool pay) {
+  return pay ? Tile<W + 2>::ELEMS : Tile<W>::ELEMS;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Elements per tile of a digit pass of W key words (+ payload).
+int radix_sort_tile_elems(int W, int pay) {
+  switch (W) {
+    case 1: return tile_elems<1>(pay);
+    case 2: return tile_elems<2>(pay);
+    case 3: return tile_elems<3>(pay);
+    case 4: return tile_elems<4>(pay);
+    case 5: return tile_elems<5>(pay);
+    default: return 0;
+  }
+}
+
+// The first pass: words int64 [W, n] (and pay int64 [n], or null) ->
+// records rec uint32 [n, W (+2)]; stats u64 [W * 4 * 256 + 2], zeroed by
+// the caller, gets the histograms, the all-ones count and the end of the
+// other elements.
+int radix_sort_first_pass(const long long* words, const long long* pay, long long n, int W,
+                          unsigned* rec, u64* stats, cudaStream_t stream) {
+  if (W < 1 || W > MAX_W || n < 1 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const unsigned m = (unsigned)n;
+#define KHOICE_FIRST(w)                                                            \
+  case w:                                                                          \
+    return pay ? first_pass<w, true>(words, pay, rec, m, stats, stream)            \
+               : first_pass<w, false>(words, nullptr, rec, m, stats, stream);
+  switch (W) {
+    KHOICE_FIRST(1)
+    KHOICE_FIRST(2)
+    KHOICE_FIRST(3)
+    KHOICE_FIRST(4)
+    KHOICE_FIRST(5)
+  }
+#undef KHOICE_FIRST
+  return (int)cudaErrorInvalidValue;
+}
+
+// Passes [begin, end) of a plan of n_digits digits (digit = word * 4 +
+// byte, byte 0 the least significant, least significant digit first).
+// a: the first pass's records; b: a second record buffer (null when no
+// pass in [begin, end) writes it); out int64 [W, n], pout int64 [n] (null
+// without a payload): the last pass's output, null when end < n_digits.
+// ones: the sort has all-ones elements.  stats: the first pass's;
+// status: zeroed u64 [n_tiles * 256 + n_digits] (n_tiles by
+// radix_sort_tile_elems), the per-pass tile counters at its end.
+int radix_sort_passes(const unsigned* a, unsigned* b, long long* out, long long* pout,
+                      long long n, int W, int pay, const int* digits, int n_digits, int begin,
+                      int end, int ones, const u64* stats, u64* status, cudaStream_t stream) {
+  if (W < 1 || W > MAX_W || n < 1 || n >= (1LL << 31) || begin < 0 || end > n_digits ||
+      begin > end)
+    return (int)cudaErrorInvalidValue;
+  const unsigned m = (unsigned)n;
+  const unsigned n_tiles = (m + radix_sort_tile_elems(W, pay) - 1) / radix_sort_tile_elems(W, pay);
+  unsigned* counters = (unsigned*)(status + (u64)n_tiles * RADIX);
+#define KHOICE_PASSES(w)                                                                       \
+  case w:                                                                                      \
+    return pay ? passes<w, true>(a, b, out, pout, m, digits, n_digits, begin, end, ones != 0,  \
+                                 stats, status, counters, stream)                              \
+               : passes<w, false>(a, b, out, nullptr, m, digits, n_digits, begin, end,         \
+                                  ones != 0, stats, status, counters, stream);
+  switch (W) {
+    KHOICE_PASSES(1)
+    KHOICE_PASSES(2)
+    KHOICE_PASSES(3)
+    KHOICE_PASSES(4)
+    KHOICE_PASSES(5)
+  }
+#undef KHOICE_PASSES
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

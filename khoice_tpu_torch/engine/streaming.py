@@ -58,8 +58,13 @@ log = get_logger("khoice.streaming")
 # of a class sort, a text position of a per-k sort), in int64 units: the
 # extracted words and their sorted copy (2 x W: W = KW, +1 for a separate
 # payload; per k, occ_words_static(k) packed or key_words(k) + 1 with the
-# gid apart) plus the extraction's temporaries and the radix sort's uint32
-# scratch (6; the sort itself needs W / 2, +2 with a payload).
+# gid apart) plus the extraction's temporaries and the radix sort's
+# scratch (6).  The sort's scratch is two copies of its uint32 records (W
+# key words, +2 for a payload: W / 2 + 1 int64 units each) and a status
+# word per tile and bucket (256 x 8 B per tile of >= 2048 elements, <= 1 B
+# per element): the middle passes hold both copies before the output
+# exists (W + 2 units, no more than the output's W + 1 and a unit of the
+# 6), the last pass one copy beside the output (W / 2 + 1).
 _SORT_OVERHEAD_WORDS = 6
 
 # the smallest chunk the streaming sweep cuts, whatever the budget

@@ -58,7 +58,7 @@ class KmerTable:
 
 
 def table_from_host(k: int, keys_2d: np.ndarray, counts: np.ndarray,
-                    device="cpu") -> KmerTable:
+                    device="cuda") -> KmerTable:
     """A table on `device` from host (n, n_words) unique keys and their
     counts; keys are sorted here and zero counts dropped."""
     w = key_words(k)

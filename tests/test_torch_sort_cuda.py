@@ -1,6 +1,7 @@
 """The radix sort kernel (khoice_tpu_torch/csrc/radix_sort.cu) vs its
 plain PyTorch version on the card, bit-equal keys and payload (both are
-stable sorts, so the payload order is fully determined).
+stable sorts, so the payload order is fully determined); its first
+pass's statistics and the plan it ran vs their plain versions.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so
 it runs where the JAX package is not installed:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from khoice_tpu_torch.kernels import sort as ksort
+from torch_sort_cases import SENTINEL_CASES, sentinel_case
 
 SENT = 0xFFFFFFFF
 
@@ -32,6 +34,11 @@ def _check(words, payload):
         assert ksort.launches == before + 1, "a CUDA tensor must launch the kernel"
     want, want_pay = ksort.sort_words_reference(words, payload)
     assert torch.equal(got, want)
+    if words.shape[1]:
+        stats = ksort.sort_stats_reference(words)
+        assert ksort.last_plan == ksort.plan_passes(*stats)
+        hist, n_ones, at_tail = ksort.sort_stats(words)
+        assert torch.equal(hist, stats[0]) and (n_ones, at_tail) == stats[1:]
     if payload is None:
         assert got_pay is None
     else:
@@ -82,3 +89,29 @@ def test_radix_sort_rejects_bad_inputs(cuda):
         ksort.sort_words(torch.zeros(6, 10, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
         ksort.sort_words(words, torch.zeros(10, dtype=torch.int64))  # payload on the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SENTINEL_CASES)
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 5])
+def test_radix_sort_sentinels(cuda, W, case):
+    rng = np.random.default_rng(31 * W + len(case))
+    n = 300_001
+    words = torch.from_numpy(sentinel_case(case, rng, W, n)).to(cuda)
+    _check(words, torch.arange(n, dtype=torch.int64, device=cuda))
+    _check(words, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "perk_packed", "occurrence_unpacked"])
+def test_radix_sort_many_tiles(cuda, case):
+    """Look-back across thousands of tiles: 2^24 + 3 elements of 3 words,
+    with a payload."""
+    rng = np.random.default_rng(24)
+    n = (1 << 24) + 3
+    if case == "random":
+        words = rng.integers(0, 2**32, (3, n), dtype=np.int64)
+    else:
+        words = sentinel_case(case, rng, 3, n)
+    words = torch.from_numpy(words).to(cuda)
+    _check(words, torch.from_numpy(rng.integers(-(2**62), 2**62, n, dtype=np.int64)).to(cuda))

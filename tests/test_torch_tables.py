@@ -100,7 +100,7 @@ def test_table_from_host_dump_and_keys(rng):
     kmers = sorted({random_dna(rng, k) for _ in range(40)}, reverse=True)
     keys = np.stack([encode_kmer(km) for km in kmers])
     counts = np.arange(len(kmers), dtype=np.uint32)  # one zero count: dropped
-    t = table_from_host(k, keys, counts)
+    t = table_from_host(k, keys, counts, device="cpu")
     jt = jax_table_from_host(k, keys, counts)
     _same(t, jt)
     assert t.dump() == jt.dump()

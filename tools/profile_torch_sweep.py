@@ -10,8 +10,8 @@
    kernel, the (d+p)//2 combine and copy back; beside them one
    `torch.sort` of the first word pair's folded int64 keys, the library
    call the sort row of PERF.md is held against, and the radix sort's
-   passes (its varying byte digits) and its time by kernel (prepare,
-   count, scan, scatter, finish) under torch.profiler.
+   planned passes and its time by kernel (first pass, middle passes,
+   last pass) under torch.profiler.
 2. With --db: each of --exp-types through the CLI entry point under
    torch.profiler (exp 2/3/4 share one work root, and exp0 runs there
    first, unprofiled); prints the wall time, the top device ops and the
@@ -91,23 +91,26 @@ def bench_stages(reps: int) -> dict:
 
 
 def sort_profile(sort_words, words, payload, reps: int) -> dict:
-    """The radix sort's passes (the byte digits of `words` that take more
-    than one value) and ms per sort of each of its kernels: the
-    profiler's device time over `reps` sorts."""
+    """The radix sort's planned passes (digits after its first pass) and
+    ms per sort of each of its kernels: the first pass, the middle passes
+    (all of them) and the last pass, the profiler's device time over
+    `reps` sorts."""
     from torch.profiler import ProfilerActivity, profile
 
-    passes = sum(int(((word >> (8 * b)) & 255).unique().numel() > 1)
-                 for word in words for b in range(4))
+    from khoice_tpu_torch.kernels import sort as ksort
+
     sort_words(words, payload)
+    digits, ones = ksort.last_plan
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             sort_words(words, payload)
         torch.cuda.synchronize()
-    out = {"passes": passes}
+    out = {"passes": len(digits), "all_ones_bucket": ones}
     for ev in prof.key_averages():
-        for name in ("prepare", "count", "scan", "scatter", "finish"):
+        for name in ("first_pass", "middle_pass", "last_pass"):
             if f"{name}_kernel" in ev.key:
-                us = getattr(ev, "device_time_total", None) or ev.cuda_time_total
+                us = (ev.device_time_total if hasattr(ev, "device_time_total")
+                      else ev.cuda_time_total)
                 out[name] = out.get(name, 0.0) + us / 1e3 / reps
     return out
 
