@@ -31,7 +31,8 @@ Phases (any failure raises, so the exit code is non-zero):
        members; an unpacked class), the classification modes at the same
        bench shape (pivot_rest 1 + 7 members, multi_pivot D = 4,
        containment 8 queries + 4 groups, buckets D = 4 with cap 255 and
-       pivot counts above 511) plus a 63-member containment;
+       pivot counts above 511) plus a 63-member containment; each mode's
+       time over its bound at the bench shape is printed;
      - the extraction kernel (A) on 2^24 codes with N runs, k in
        {7, 15, 16, 31, 32, 49, 63}, keys and the gid-packed form;
      - the occurrence-histogram kernel, packed (B), on the sorted words of
@@ -55,7 +56,12 @@ Phases (any failure raises, so the exit code is non-zero):
         (chunks, key-range groups, passes, retries) are printed.
      Every launch counter is set to 0 just before each run and read just
      after; the kernels a run uses must have launched (the sort on every
-     run), and its CSVs must have the expected lines.  Each kernel call is
+     run), and its CSVs must have the expected lines.  In each 4a/4b run
+     the largest device-memory estimate that the engine checked against
+     its budget (with what the run held at the check) is printed beside
+     the run's peak, with the checked step whose own peak comes nearest
+     to (or furthest over) its estimate, and the run's peak must not
+     exceed the estimate.  Each kernel call is
      timed (CUDA events) and held against its plain version on the same
      inputs, exactly, after its timed span: every scan call of 4a, the
      first SORT_HOLDS sorts of each 4a/4b run, in 4b every extraction
@@ -87,6 +93,11 @@ import time
 
 import numpy as np
 import torch
+
+# The plain scans' checks take one piece of ~32 GiB beside the run's
+# cached blocks; segments that grow keep the allocator's cache from
+# splitting the card into pieces too small for it.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K_GRID = list(range(7, 31)) + list(range(34, 50, 3))  # the reference grid
@@ -132,7 +143,7 @@ def build():
     # "Used R registers"; one line per kernel: its instantiations' registers
     name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
-        m = re.search(r"entry function '.*?((?:occ_)?(?:tile_summaries|tile_carries|count_runs)"
+        m = re.search(r"entry function '.*?((?:occ_)?(?:tile_summaries|tile_carries|count_runs)|scan_tiles"
                       r"|extract_kernel|(?:first|middle|last)_pass_kernel)", line)
         if m:
             name = m.group(1)
@@ -471,6 +482,9 @@ def kernels_vs_plain():
     results["containment"]["max_abs_err"] = max(results["containment"]["max_abs_err"],
                                                  wide_c["max_abs_err"])
     del bench, groups, pivot
+    print("scan time over its bound at the bench shape: " + ", ".join(
+        f"{mode} {results[mode]['ms'] / results[mode]['bound_ms']:.1f}x"
+        for mode in ("occ",) + MODES), flush=True)
     results.update(perk_kernels_vs_plain(rng, members96))
     return results
 
@@ -494,6 +508,7 @@ class Held:
         self.errors = {}
         self.k = None
         self.peak_before = 0
+        self.step_before = 0
         self.plain_s = 0.0
 
     def _wrap(self, orig, label, plain):
@@ -512,6 +527,7 @@ class Held:
             plain_s = 0.0
             if held:
                 self.peak_before = max(self.peak_before, torch.cuda.max_memory_allocated())
+                self.step_before = max(self.step_before, torch.cuda.max_memory_allocated())
                 t0 = time.perf_counter()
                 want = plain(*args)
                 torch.cuda.synchronize()
@@ -548,6 +564,14 @@ class Held:
 
     def peak(self):
         return max(self.peak_before, torch.cuda.max_memory_allocated())
+
+    def step_start(self):
+        """Restart the peak at what is allocated now (a new step)."""
+        torch.cuda.reset_peak_memory_stats()
+        self.step_before = 0
+
+    def step_peak(self):
+        return max(self.step_before, torch.cuda.max_memory_allocated())
 
     def report(self, per_call):
         """Each call (per_call) or, per kernel, calls, time and checks."""
@@ -633,19 +657,68 @@ def count_lines(path):
     return len(lines)
 
 
-def run_path(label, argv, hold, uses, expect_lines, scan_plain=True, per_call=None):
+class Estimates:
+    """Each device-memory estimate that the engine checks against its
+    budget during a run (`check_device_budget`, imported by name in three
+    modules), with what the run held on the card at that check, and the
+    peak of the step it starts (until the next check; the plain checks'
+    memory excluded, as Held excludes it)."""
+
+    def __init__(self, held):
+        from khoice_tpu_torch.engine import ksweep_classify, session, streaming
+
+        self.modules = (streaming, ksweep_classify, session)
+        self.held = held
+        self.steps = [["before the first check", 0, 0]]  # [label, estimate, peak]
+
+    def _close_step(self):
+        self.steps[-1][2] = max(self.steps[-1][2], self.held.step_peak())
+        self.held.peak_before = self.held.peak()
+        self.held.step_start()
+
+    def __enter__(self):
+        self.orig = self.modules[0].check_device_budget
+
+        def check(need_bytes, budget_bytes, label, device=None):
+            self._close_step()
+            self.steps.append([label, need_bytes + torch.cuda.memory_allocated(), 0])
+            return self.orig(need_bytes, budget_bytes, label, device)
+
+        for module in self.modules:
+            module.check_device_budget = check
+        return self
+
+    def __exit__(self, *exc):
+        self._close_step()
+        for module in self.modules:
+            module.check_device_budget = self.orig
+
+    def largest(self):
+        return max(est for _, est, _ in self.steps)
+
+    def worst(self):
+        """The step whose peak is furthest above (or least below) its
+        estimate (the run's largest estimate for the part before the
+        first check)."""
+        first = [(self.steps[0][0], self.largest(), self.steps[0][2])]
+        return max(first + [tuple(x) for x in self.steps[1:]], key=lambda x: x[2] - x[1])
+
+
+def run_path(label, argv, hold, uses, expect_lines, scan_plain=True, per_call=None,
+             incore=True):
     """Drive one main path through the CLI with every count set to 0 just
     before it, its kernel calls timed and held against their plain
     versions; return the counts read just after, each kernel's largest
     difference, the per-kernel call summary and the run's wall and peak
     (checks excluded).  Every run sorts with the radix sort.  The calls
     of the kernels in per_call are printed one by one (by default the
-    scan's, when they are held)."""
+    scan's, when they are held).  An in-core run's peak must stay within
+    the largest estimate the engine checked (engine/streaming.py)."""
     from khoice_tpu_torch import cli
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with Held(kernel_specs(scan_plain), hold) as held:
+    with Held(kernel_specs(scan_plain), hold) as held, Estimates(held) as est:
         reset_counts()
         t0 = time.perf_counter()
         rc = cli.main(argv)
@@ -665,6 +738,18 @@ def run_path(label, argv, hold, uses, expect_lines, scan_plain=True, per_call=No
     print(f"{label}: wall {wall - held.plain_s:.2f} s (and {held.plain_s:.2f} s of plain "
           f"checks), peak device memory {held.peak() / 2**30:.2f} GiB, launches "
           f"{ {k: v for k, v in counts.items() if v} }, lines {lines}", flush=True)
+    if incore:
+        if len(est.steps) < 2:
+            raise AssertionError(f"{label}: the engine checked no estimate against its budget")
+        step, step_est, step_peak = est.worst()
+        print(f"  estimated peak {est.largest() / 2**30:.3f} GiB, measured {held.peak() / 2**30:.3f} "
+              f"GiB: the estimate is {est.largest() / held.peak():.3f}x the peak; "
+              f"{len(est.steps) - 1} checked steps, the weakest {step!r}: estimate "
+              f"{step_est / 2**30:.3f} GiB (with what the run held), peak "
+              f"{step_peak / 2**30:.3f} GiB", flush=True)
+        if held.peak() > est.largest():
+            raise AssertionError(f"{label}: peak {held.peak()} B over the estimate "
+                                 f"{est.largest()} B")
     if per_call is None:
         per_call = ("occ",) + MODES if scan_plain else ()
     per = held.report(per_call)
@@ -840,7 +925,7 @@ def streaming_paths(tmp, runs):
                 ["run", "--exp-type", "1", "--database-root", db, "--work-root", work,
                  "--device-budget-gb", str(gib), "--force"], hold, ["occ"] + uses,
                 {os.path.join(work, csvs[0]): 1 + n_groups * g, os.path.join(work, csvs[1]): 1 + g},
-                per_call=())
+                per_call=(), incore=False)
             sorts[f"exp1 streamed on {label}"] = c["sort"]
             merge(e, errors)
             if per["sort"]["held"] != STREAM_HOLDS + 1 or per["occ"]["held"] != 1:

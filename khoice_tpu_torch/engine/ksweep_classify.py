@@ -55,7 +55,8 @@ def _run_classes(member_codes: Sequence[np.ndarray], ks: Sequence[int], mode: st
         return out, remaining
     total = sum(int(c.shape[0]) + 1 for c in member_codes)
     budget = device_budget_bytes or default_device_budget_bytes(device)
-    check_device_budget(incore_sweep_bytes(total, ks, n_members), budget, f"{mode} sweep")
+    check_device_budget(incore_sweep_bytes(total, ks, n_members), budget, f"{mode} sweep",
+                        device)
     codes, gids = pack_members(member_codes, device)
     for kmax, KW, cks, packed in classes:
         skeys, spay = _sweep_doubled(codes, gids, kmax, KW, packed)

@@ -54,18 +54,30 @@ from .occurrence import gid_packable, occurrence_histogram_packed, pack_members
 
 log = get_logger("khoice.streaming")
 
-# The port's peak bytes per element of one sort (a doubled-text element
-# of a class sort, a text position of a per-k sort), in int64 units: the
-# extracted words and their sorted copy (2 x W: W = KW, +1 for a separate
-# payload; per k, occ_words_static(k) packed or key_words(k) + 1 with the
-# gid apart) plus the extraction's temporaries and the radix sort's
-# scratch (6).  The sort's scratch is two copies of its uint32 records (W
-# key words, +2 for a payload: W / 2 + 1 int64 units each) and a status
-# word per tile and bucket (256 x 8 B per tile of >= 2048 elements, <= 1 B
-# per element): the middle passes hold both copies before the output
-# exists (W + 2 units, no more than the output's W + 1 and a unit of the
-# 6), the last pass one copy beside the output (W / 2 + 1).
-_SORT_OVERHEAD_WORDS = 6
+# Peak device bytes of one radix sort (kernels/sort.py::_launch) of n
+# elements with W = key words (+1 for a payload) int64 rows in and out
+# and records of R = key words (+2 for a payload) uint32 words:
+#   the input rows, alive through the sort          8 W per element
+#   the first pass's records `rec`                  4 R
+#   the middle passes' second copy                  4 R  (both live)
+#   the status, 256 x 8 B per tile of >= 2048       <= 1
+#   the last pass's output (the copy it does not    8 W  (one copy left)
+#   read is freed before it is allocated)
+# The middle passes hold 8 W + 8 R + 1 and the last 8 W + 4 R + 8 W + 1,
+# at least as much (R <= 2 W), so the peak is n * (16 W + 4 R + 1) bytes plus
+# _SORT_FIXED_BYTES (the statistics, <= 41 KB at W = 5, a partial tile's
+# status, the pass counters): 20 B per key word, 24 B for a payload, +1.
+# A packed 4-word class sort takes 81 B per element.  What lives beside
+# the sort is the caller's: `_RESIDENT_BYTES`, the per-k layouts' keys.
+_SORT_FIXED_BYTES = 1 << 16
+
+# pack_members' codes (uint8) and gids (int64) of the group, resident on
+# the device through its sorts: bytes per text position
+_RESIDENT_BYTES = 9
+
+# The caching allocator counts a cached block whole when the rest would
+# be under 1 MiB; a few such blocks ride every peak.
+_ALLOCATOR_SLACK = 8 << 20
 
 # the smallest chunk the streaming sweep cuts, whatever the budget
 _MIN_CHUNK = 1 << 12
@@ -90,54 +102,109 @@ def default_device_budget_bytes(device) -> int:
     return 64 << 30
 
 
-def _sort_bytes(n_elems: int, words: int) -> int:
-    """Estimated peak device bytes of one sort of n_elems elements of
-    `words` int64 words, its input and output included."""
-    return n_elems * 8 * (2 * words + _SORT_OVERHEAD_WORDS)
+def _sort_bytes(n_elems: int, key_words: int, payload: bool = False) -> int:
+    """Peak device bytes of one radix sort of n_elems elements of
+    `key_words` int64 key rows (and an int64 payload), its input and
+    output included (the derivation above)."""
+    W = key_words + int(payload)
+    R = key_words + 2 * int(payload)
+    return n_elems * (16 * W + 4 * R + 1) + _SORT_FIXED_BYTES
 
 
 def incore_sweep_bytes(total_positions: int, ks: Sequence[int], n_members: int) -> int:
     """Estimated peak device bytes of the port's in-core sweep over a
     group whose packed text (members + separators) spans `total_positions`:
-    the largest class sort over n2 = 2 * total_positions elements."""
+    the largest class sort over n2 = 2 * total_positions elements beside
+    the group's resident codes and gids (the doubled text's extraction
+    frees its temporaries before the sort)."""
     classes, _rest = plan_sweep(ks, n_members)
     n2 = 2 * total_positions
     worst = 0
     for _kmax, KW, _cks, packed in classes:
-        worst = max(worst, _sort_bytes(n2, KW if packed else KW + 1))
-    return worst
+        worst = max(worst, _sort_bytes(n2, KW, not packed))
+    if not worst:
+        return 0
+    return worst + _RESIDENT_BYTES * total_positions + _ALLOCATOR_SLACK
 
 
 def perk_bytes(total_positions: int, ks: Sequence[int], n_members: int) -> int:
     """Estimated peak device bytes of the per-k fused path over a group
     whose packed text spans `total_positions`: its largest per-k sort
-    (engine/occurrence.py), 0 for no ks."""
+    (engine/occurrence.py::_sorted_pairs) beside the resident codes and
+    gids, 0 for no ks.  Packed, the extraction's words are the sort's
+    input; with the gid apart, the canonical keys, their validity and the
+    gid row stay beside the sort of their concatenation."""
     worst = 0
     for k in ks:
-        words = occ_words_static(k) if gid_packable(n_members, k) else key_words(k) + 1
-        worst = max(worst, _sort_bytes(total_positions, words))
-    return worst
+        if gid_packable(n_members, k):
+            need = _sort_bytes(total_positions, occ_words_static(k))
+        else:
+            wk = key_words(k)
+            need = _sort_bytes(total_positions, wk + 1) + total_positions * (8 * wk + 9)
+        worst = max(worst, need)
+    if not worst:
+        return 0
+    return worst + _RESIDENT_BYTES * total_positions + _ALLOCATOR_SLACK
 
 
-def check_device_budget(need_bytes: int, budget_bytes: int, label: str) -> None:
-    """Raise DeviceBudgetExceeded when `need_bytes` would not fit."""
-    if need_bytes > budget_bytes:
+def count_bytes(n_codes: int, k: int) -> int:
+    """Estimated peak device bytes of counting the k-mers of `n_codes`
+    codes (engine/ops.py::count_codes): the codes, the canonical keys and
+    their validity beside the sort of the valid keys (at most all)."""
+    wk = key_words(k)
+    return _sort_bytes(n_codes, wk) + n_codes * (8 * wk + 2) + _ALLOCATOR_SLACK
+
+
+def table_merge_bytes(n_keys: int, n_words: int) -> int:
+    """Estimated device bytes of a table op (engine/ops.py: union_many,
+    _merge_two) over `n_keys` keys of `n_words` words beside its input
+    tables: the sort of their concatenation with the counts or indices
+    as its payload; what follows the sort (the run sums, the gathers)
+    holds less."""
+    return _sort_bytes(n_keys, n_words, True) + _ALLOCATOR_SLACK
+
+
+def annotation_bytes(n_keys: int, n_words: int) -> int:
+    """Estimated device bytes of classify/annotate.py::build_annotation
+    over `n_keys` keys beside its input tables: a table op's sort (an
+    index payload) with each key's source and count beside it, or what
+    follows it, whichever holds more: the sorted keys and their shifted
+    copy (16 B per word), the order, sources and counts gathered (and
+    their old copies), the run ids and the member bits (66 B per key)."""
+    return max(table_merge_bytes(n_keys, n_words) + 16 * n_keys,
+               (16 * n_words + 66) * n_keys + _ALLOCATOR_SLACK)
+
+
+def resident_bytes(device) -> int:
+    """Device bytes the run holds now (tensors allocated on a CUDA
+    device); 0 for the CPU."""
+    if device is None or torch.device(device).type != "cuda":
+        return 0
+    return torch.cuda.memory_allocated(device)
+
+
+def check_device_budget(need_bytes: int, budget_bytes: int, label: str, device=None) -> None:
+    """Raise DeviceBudgetExceeded when `need_bytes` would not fit beside
+    what the run already holds on `device`."""
+    held = resident_bytes(device)
+    if need_bytes + held > budget_bytes:
         raise DeviceBudgetExceeded(
-            f"{label}: needs ~{need_bytes / 2**30:.1f} GiB of device memory, over the "
-            f"device budget of {budget_bytes / 2**30:.1f} GiB; only exp1's shared-sort "
+            f"{label}: needs ~{need_bytes / 2**30:.1f} GiB of device memory beside "
+            f"{held / 2**30:.1f} GiB held, over the device budget of "
+            f"{budget_bytes / 2**30:.1f} GiB; only exp1's shared-sort "
             "classes stream under a budget (the per-k sorts and the classification "
             "sweeps run in-core)"
         )
 
 
 def check_incore_budget(total_positions: int, ks: Sequence[int], n_members: int,
-                        budget_bytes: int, label: str) -> None:
+                        budget_bytes: int, label: str, device=None) -> None:
     """Raise DeviceBudgetExceeded when the group's plan (its class sorts
     and the per-k sorts of the ks it leaves over) would not fit."""
     _classes, remaining = plan_sweep(ks, n_members)
     need = max(incore_sweep_bytes(total_positions, ks, n_members),
                perk_bytes(total_positions, remaining, n_members))
-    check_device_budget(need, budget_bytes, label)
+    check_device_budget(need, budget_bytes, label, device)
 
 
 def sentinel_encode_packed(fwd: torch.Tensor, KW: int, nio_bits: int, gid_bits: int):
@@ -189,7 +256,7 @@ def _stream_plan(total: int, KW: int, H: int, kmin: int, budget: int,
     so `_stream_peak_bytes` stays within the budget.  Overrides (the
     tests force them) are taken as given."""
     quarter = _free_quarter(budget, total, H)
-    per_elem = _sort_bytes(1, KW)
+    per_elem = _sort_bytes(1, KW) - _SORT_FIXED_BYTES
     C = chunk_elems or max(1, min(total, max(_MIN_CHUNK, quarter // per_elem - H)))
     n_chunks = math.ceil(total / C)
     G = n_groups or max(1, math.ceil(_SLACK * n_chunks * C * per_elem / max(quarter, 1)))
@@ -393,7 +460,7 @@ def occurrence_histograms_sweep_streaming(
         # Leftover ks (classes with < 3 ks never pack; empty for any real
         # grid) ride the per-k fused path, over the undoubled text.
         check_device_budget(perk_bytes(positions, remaining, n_members), device_budget_bytes,
-                            "the per-k sorts of a streamed group's leftover ks")
+                            "the per-k sorts of a streamed group's leftover ks", device)
         packed_arrs = pack_members(member_codes, device)
         for k in remaining:
             out[k] = occurrence_histogram_packed(packed_arrs, n_members, k, cs=cs, cx=cx)

@@ -309,18 +309,18 @@ def _launch(words: torch.Tensor, payload: torch.Tensor | None, ks: list,
         for c0 in range(0, len(ks), per_launch):
             cks = ks[c0:c0 + per_launch]
             hist = torch.zeros(2, len(cks), bins, dtype=torch.int64, device=dev)
-            tile_f = torch.empty(len(cks), n_tiles, dtype=torch.int32, device=dev)
-            tile_v = torch.empty(len(cks), n_tiles, dtype=torch.int64, device=dev)
-            carry = torch.empty(len(cks), n_tiles, dtype=torch.int64, device=dev)
+            # the look-back's status words (zeroed, the tile counter last),
+            # and its aggregate and inclusive values and pivot counts
+            status = torch.zeros(len(cks) * n_tiles + 1, dtype=torch.int32, device=dev)
+            vals = torch.empty(2, len(cks), n_tiles, dtype=torch.int64, device=dev)
             sums = None
             if mode == "buckets":
                 sums = torch.empty(2, len(cks), n_tiles, dtype=torch.int32, device=dev)
             err = lib.ksweep_scan_launch(
                 words.data_ptr(), None if packed else payload.data_ptr(), n, KW,
                 int(packed), (ctypes.c_int * len(cks))(*cks), len(cks),
-                MODES.index(mode), p0, p1, bins, tile_f.data_ptr(), tile_v.data_ptr(),
-                None if sums is None else sums[0].data_ptr(), carry.data_ptr(),
-                None if sums is None else sums[1].data_ptr(), hist.data_ptr(), stream,
+                MODES.index(mode), p0, p1, bins, status.data_ptr(), vals.data_ptr(),
+                None if sums is None else sums.data_ptr(), hist.data_ptr(), stream,
             )
             if err != 0:
                 raise RuntimeError(f"ksweep_scan launch ({mode}) failed: CUDA error {err}")

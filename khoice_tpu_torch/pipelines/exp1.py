@@ -79,7 +79,7 @@ def run_exp1(
                 member_codes, ks_list, device, cs=union_cs, cx=hist_cx,
                 device_budget_bytes=budget,
             )
-        streaming.check_incore_budget(total, ks_list, len(member_codes), budget, label)
+        streaming.check_incore_budget(total, ks_list, len(member_codes), budget, label, device)
         return occurrence_histograms_sweep(
             member_codes, ks_list, device, cs=union_cs, cx=hist_cx
         )

@@ -21,7 +21,7 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Sequence
 
-from ..classify.annotate import build_annotation, feature_buckets
+from ..classify.annotate import feature_buckets
 from ..classify.confusion import (
     accuracy_values,
     feature_confusion_rows,
@@ -80,7 +80,7 @@ def run_exp4(
                           for c in group_codes]
             for num in nums:
                 pivot_table = eng.count_codes(pivot_codes[num], k, cs=count_cs)
-                swept[num][k] = feature_buckets(build_annotation(pivot_table, group_sets))
+                swept[num][k] = feature_buckets(eng.annotate(pivot_table, group_sets))
         cm, cm_ucol = [], []
         for num in nums:
             buckets, unique = swept[num][k]

@@ -1,6 +1,8 @@
 """The scan kernel's classification modes (khoice_tpu_torch/csrc/ksweep_scan.cu:
 pivot_rest, multi_pivot, containment, buckets) vs their plain PyTorch
-version on the card, exact equality.
+version on the card, exact equality: on sorted doubled texts, and on the
+synthetic sorted keys of test_torch_ksweep_cuda.py (runs across threads,
+warps and tiles at every k, blocks where only some ks cross).
 
 Needs a CUDA device and skips without one.  The file imports no jax, so
 it runs where the JAX package is not installed:
@@ -15,6 +17,7 @@ import torch
 from khoice_tpu_torch.engine.ksweep import _sweep_doubled, plan_sweep
 from khoice_tpu_torch.engine.occurrence import pack_members
 from khoice_tpu_torch.kernels import ksweep_scan
+from test_torch_ksweep_cuda import TILE, synthetic_ks, synthetic_sorted
 
 K_GRID = list(range(7, 31)) + list(range(34, 50, 3))
 
@@ -79,6 +82,44 @@ def _check_mode(dev, members, ks, mode, mp):
 def test_kernel_equals_plain_scan(cuda, mode, mp, g, n, poly_a, repeat, ks):
     rng = np.random.default_rng(g * 1000 + n)
     _check_mode(cuda, _members(rng, g, n, poly_a, repeat), ks, mode, mp)
+
+
+# 12 members in every mode
+SYNTHETIC_MODES = (("pivot_rest", 11), ("multi_pivot", 6), ("containment", (8, 4)),
+                   ("buckets", (11, 5)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,mp", SYNTHETIC_MODES)
+@pytest.mark.parametrize("KW,packed", [(1, True), (1, False), (2, True), (2, False),
+                                       (3, True), (3, False), (4, True), (4, False)])
+def test_kernel_equals_plain_scan_on_crossing_runs(cuda, mode, mp, KW, packed):
+    """Runs across threads, warps and tiles at every k, blocks where only
+    some ks cross; n = 5 tiles + 1 and a tile + 1."""
+    rng = np.random.default_rng(KW * 2 + packed + 100 * len(mode))
+    ks = synthetic_ks(KW, packed)
+    for n in (5 * TILE + 1, TILE + 1):
+        words, pay = synthetic_sorted(rng, KW, packed, n, 12, max(ks))
+        words = torch.from_numpy(words).to(cuda)
+        pay = None if pay is None else torch.from_numpy(pay).to(cuda)
+        got = ksweep_scan.scan_classify(words, pay, ks, mode, mp, packed)
+        want = ksweep_scan.scan_classify_reference(words, pay, ks, mode, mp, packed)
+        assert want.sum() > 0
+        assert torch.equal(got, want), (mode, KW, packed, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,mp", SYNTHETIC_MODES)
+def test_kernel_forty_ks_in_two_launches(cuda, mode, mp):
+    """40 ks (two launches of at most 32) over crossing runs, unpacked KW 3."""
+    rng = np.random.default_rng(40)
+    ks = list(range(2, 42))
+    words, pay = synthetic_sorted(rng, 3, False, 3 * TILE + 5, 12, max(ks))
+    words, pay = torch.from_numpy(words).to(cuda), torch.from_numpy(pay).to(cuda)
+    before = ksweep_scan.launches[mode]
+    got = ksweep_scan.scan_classify(words, pay, ks, mode, mp, False)
+    assert ksweep_scan.launches[mode] - before == 2
+    assert torch.equal(got, ksweep_scan.scan_classify_reference(words, pay, ks, mode, mp, False))
 
 
 @pytest.mark.cuda

@@ -15,6 +15,8 @@ from khoice_tpu_torch.engine import interop
 from khoice_tpu_torch.engine import ksweep as tks
 from khoice_tpu_torch.engine.occurrence import pack_members
 from khoice_tpu_torch.engine.streaming import (
+    _ALLOCATOR_SLACK,
+    _SORT_FIXED_BYTES,
     DeviceBudgetExceeded,
     check_incore_budget,
     incore_sweep_bytes,
@@ -182,7 +184,8 @@ def test_per_k_path_and_budget_raise(nprng):
     assert (tks.occurrence_histograms_sweep(wide, [7, 9, 11], "cpu", cx=70)
             == jks.occurrence_histograms_sweep(wide, [7, 9, 11], cx=70))
     need = incore_sweep_bytes(1000, K_GRID, 3)
-    assert need == 2 * 1000 * 8 * (2 * 4 + 6)  # one packed KW=4 class
+    # one packed KW=4 class: 81 B per doubled element beside codes and gids
+    assert need == 2 * 1000 * 81 + 1000 * 9 + _SORT_FIXED_BYTES + _ALLOCATOR_SLACK
     check_incore_budget(1000, K_GRID, 3, need, "g")
     with pytest.raises(DeviceBudgetExceeded, match="stream under a budget"):
         check_incore_budget(1000, K_GRID, 3, need - 1, "g")

@@ -24,6 +24,8 @@ from khoice_tpu_torch.engine import interop
 from khoice_tpu_torch.engine import ksweep as tks
 from khoice_tpu_torch.engine import occurrence as tocc
 from khoice_tpu_torch.engine.streaming import (
+    _ALLOCATOR_SLACK,
+    _SORT_FIXED_BYTES,
     DeviceBudgetExceeded,
     check_incore_budget,
     perk_bytes,
@@ -150,8 +152,11 @@ def test_sweep_sends_leftover_ks_to_the_per_k_path(nprng):
                     ([_codes(nprng, 60, 1) for _ in range(70)], [7, 9, 11])):
         assert tks.occurrence_histograms_sweep(mem, ks, "cpu", cx=80) == jax_sweep(mem, ks, cx=80)
     need = perk_bytes(1000, [11, 21], 3)
-    assert need == 1000 * 8 * (2 * 2 + 6)  # k = 21: (key << 8) | gid in 2 words
-    assert perk_bytes(1000, [31], 300) == 1000 * 8 * (2 * 3 + 6)  # 2 key words + gid
+    fixed = _SORT_FIXED_BYTES + _ALLOCATOR_SLACK
+    # k = 21: (key << 8) | gid in 2 words, 20 B a word, beside codes and gids
+    assert need == 1000 * (20 * 2 + 1 + 9) + fixed
+    # 2 key words + the gid row, the keys, validity and gid beside the sort
+    assert perk_bytes(1000, [31], 300) == 1000 * (20 * 3 + 1 + 8 * 2 + 9 + 9) + fixed
     check_incore_budget(1000, [11, 21], 3, need, "g")
     with pytest.raises(DeviceBudgetExceeded, match="stream under a budget"):
         check_incore_budget(1000, [11, 21], 3, need - 1, "g")

@@ -91,14 +91,15 @@ def test_streaming_overflow_retry_is_contained(rng, monkeypatch):
 
 
 def test_streaming_sized_from_a_small_budget(rng):
-    """The knobs derived from a 4 MiB budget alone (several chunks, several
-    groups) still give the exact histograms."""
+    """The knobs derived from a 2 MiB budget alone (several chunks, several
+    groups: 41 B per element of a 2-word sort) still give the exact
+    histograms."""
     members = _members(rng)[:3]
     total = 2 * sum(len(m) + 1 for m in members)
-    C, n_chunks, G, cap, R = st._stream_plan(total, 2, 33, 7, 4 << 20)
+    C, n_chunks, G, cap, R = st._stream_plan(total, 2, 33, 7, 2 << 20)
     assert n_chunks > 1 and G > 1
     got = st.occurrence_histograms_sweep_streaming(members, KS, "cpu", cx=8,
-                                                   device_budget_bytes=4 << 20)
+                                                   device_budget_bytes=2 << 20)
     assert got == occurrence_histograms_sweep(members, KS, "cpu", cx=8)
 
 

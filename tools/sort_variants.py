@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
-"""Variants of the radix sort's CUDA source timed in turns against it.
+"""Variants of a CUDA source of the port timed in turns against it.
 
-    python tools/sort_variants.py [--reps 10]
+    python tools/sort_variants.py [--kernel sort|scan] [--reps 10]
 
-Each variant is `khoice_tpu_torch/csrc/radix_sort.cu` with a few lines
-replaced (VARIANTS), compiled alone with nvcc into a temporary directory
-and loaded in place of the port's library for the sort wrapper
-(`kernels/sort.py`), all in one process on one card.  The shapes are
-those of `chip_smoke.py` phase 3 (the bench class, the unpacked class,
-the per-k packed words at k = 31 and 49, a 2^24-key table merge).  Each
+--kernel sort (the default): `khoice_tpu_torch/csrc/radix_sort.cu`;
+--kernel scan: `khoice_tpu_torch/csrc/ksweep_scan.cu`.  Each variant is
+the source with a few lines replaced (SORT_VARIANTS, SCAN_VARIANTS),
+compiled alone with nvcc into a temporary directory and loaded in place
+of the port's library for the kernel's wrapper (`kernels/sort.py`,
+`kernels/ksweep_scan.py`), all in one process on one card.  The shapes
+are those of `chip_smoke.py` phase 3: for the sort the bench class, the
+unpacked class, the per-k packed words at k = 31 and 49 and a 2^24-key
+table merge; for the scan its five modes at the bench shape, the
+64-member and unpacked occ shapes and the 63-member containment, and occ
+and buckets over 8 related members (1% SNPs, as the generated
+databases' groups).  Each
 shape times every variant twice, in the order committed, variants,
-variants reversed, committed (CUDA events over `--reps` sorts); a variant
-that keeps the function must give the committed kernel's result bit for
-bit.  The ablations (x_*) drop a phase of each digit pass to show what it
-costs: their results are wrong and they run only where that cannot write
-out of bounds (no all-ones elements).  Also prints the committed
-kernel's ms per sort by kernel (torch.profiler) and the card's name and
-power limit.
+variants reversed, committed (CUDA events over `--reps` calls); a
+variant that keeps the function must give the committed kernel's result
+bit for bit.  The ablations (x_*) drop a part of the kernel to show what
+it costs: their results are wrong, and a sort ablation runs only where
+that cannot write out of bounds (no all-ones elements).  Also prints,
+for the sort, the committed kernel's ms per sort by kernel
+(torch.profiler), and the card's name and power limit.
 """
 
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -31,8 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import torch
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "khoice_tpu_torch", "csrc", "radix_sort.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "khoice_tpu_torch", "csrc")
 ITEMS = "static constexpr int ITEMS = R <= 2 ? 32 : (R <= 4 ? 16 : 8);"
 BALLOTS = """    rank_bucket[r] = d;
     peer_of[r] = peers;
@@ -62,7 +69,7 @@ STORE = "        if (from < live) dst[(u64)gs * R + j] = buf[es * R + j];"
 KEEP_LOADS = "        if (from < live && buf[es * R + j] == 0x12345u) dst[0] = 1u;"
 NO_ONES = ("bench W4", "unpacked W2+pay")
 # name: (replacements, keeps the function, shapes (None: all))
-VARIANTS = {
+SORT_VARIANTS = {
     "tiles_half": ([(ITEMS, "static constexpr int ITEMS = R <= 2 ? 16 : 8;")], True, None),
     "tiles_1.5x": ([(ITEMS, "static constexpr int ITEMS = R <= 2 ? 32 : (R <= 4 ? 24 : 12);")],
                    True, None),
@@ -74,19 +81,93 @@ VARIANTS = {
 }
 
 
-def build(tmp: str) -> dict:
+# the scan's lines that the variants replace
+MIN_BLOCKS = "constexpr int MIN_BLOCKS = 4;"
+EPT = "constexpr int EPT = 8; "
+ANY_HEAD = "      const bool any_head = __any_sync(FULL, head);"
+BLOCK_K = "      if (2 * ks.k[q] <= bmax) block_ks |= 1u << q;"
+BIN_RUNS = "template <int MODE>\n__device__ __forceinline__ bool bin_runs("
+CARRIED = "      carried &= !start;"
+DEFER_AT = "        if (carried) {"
+DEFER_CALL = """      const bool deferred = bin_runs<MODE>(gn, lcp, pm, base, n, q, k, acc, sacc, carried, mp,
+                                           hd, hp, &s_defer[q][warp]);
+      if (block) {
+        const bool any_deferred = __any_sync(FULL, deferred);
+        if (lane == 0 && !any_deferred) s_defer[q][warp].f = 0;
+      }"""
+SPLIT_LOOPS = """      if (block && __shfl_sync(FULL, head, 0)) {
+        const bool deferred = bin_runs<MODE, true>(gn, lcp, pm, base, n, q, k, acc, sacc,
+                                                   carried, mp, hd, hp, &s_defer[q][warp]);
+        const bool any_deferred = __any_sync(FULL, deferred);
+        if (lane == 0 && !any_deferred) s_defer[q][warp].f = 0;
+      } else {
+        bin_runs<MODE, false>(gn, lcp, pm, base, n, q, k, acc, sacc, false, mp, hd, hp,
+                              nullptr);
+        if (block && lane == 0) s_defer[q][warp].f = 0;
+      }"""
+HIT = """  atomicAdd(&hd[b], w);
+  if (pal) atomicAdd(&hp[b], w);"""
+# the lanes that hit one bin add once: their weights summed by the leader
+WARP_HITS = """  const unsigned act = __activemask();
+  __syncwarp(act);
+  const unsigned peers = __match_any_sync(act, (unsigned long long)(hd + b));
+  const unsigned wd = __reduce_add_sync(peers, w);
+  const unsigned wp = __reduce_add_sync(peers, pal ? w : 0u);
+  if ((threadIdx.x & 31) == __ffs(peers) - 1) {
+    atomicAdd(&hd[b], wd);
+    if (wp) atomicAdd(&hp[b], wp);
+  }"""
+PAL = "      pm[e] = i < n ? pal_mask(h, l, ks) : 0u;"
+PAL_FILTER = "  for (int i = 0; i < 4; ++i) {\n    const u64 c = "
+CLASSIFY = ("pivot_rest", "multi_pivot", "containment", "buckets", "containment 63",
+            "buckets related")
+SCAN_VARIANTS = {
+    "blocks_2": ([(MIN_BLOCKS, "constexpr int MIN_BLOCKS = 2;")], True, None),
+    "blocks_3": ([(MIN_BLOCKS, "constexpr int MIN_BLOCKS = 3;")], True, None),
+    "ept_4": ([(EPT, "constexpr int EPT = 4; ")], True, None),
+    "ept_16_2blocks": ([(EPT, "constexpr int EPT = 16; "),
+                        (MIN_BLOCKS, "constexpr int MIN_BLOCKS = 2;")], True, None),
+    "warp_hits": ([(HIT, WARP_HITS)], True, CLASSIFY),
+    # the binning loop without the carried-run tracking where the warp
+    # carries no run (two instantiations instead of one)
+    "split_loops": ([(BIN_RUNS, "template <int MODE, bool DEFER>\n"
+                                "__device__ __forceinline__ bool bin_runs("),
+                     (CARRIED, "      if (DEFER) carried &= !start;"),
+                     (DEFER_AT, "        if (DEFER && carried) {"),
+                     (DEFER_CALL, SPLIT_LOOPS)], True, None),
+    # every k takes the cross-warp and cross-thread work, as if every run
+    # crossed: what the skip saves
+    "no_skip": ([(ANY_HEAD, "      const bool any_head = true;"),
+                 (BLOCK_K, "      block_ks |= 1u << q;")], True, None),
+    # every even k checked in full, as without the compares
+    "no_pal_filter": ([(PAL_FILTER, "  for (int i = 0; i < 0; ++i) {\n    const u64 c = ")],
+                      True, None),
+    "x_no_pal": ([(PAL, "      pm[e] = 0u;")], False, ("occ bench",)),
+}
+KERNELS = {
+    "sort": ("radix_sort.cu", SORT_VARIANTS,
+             ("radix_sort_tile_elems", "radix_sort_first_pass", "radix_sort_passes")),
+    "scan": ("ksweep_scan.cu", SCAN_VARIANTS,
+             ("ksweep_scan_tile_elems", "ksweep_scan_max_ks", "ksweep_scan_hist_bytes_max",
+              "ksweep_scan_launch")),
+}
+
+
+def build(tmp: str, kernel: str) -> dict:
     """{name: ctypes library} for the committed source and each variant,
     compiled in parallel."""
     from khoice_tpu_torch.kernels import _build
 
-    with open(SRC) as fd:
+    source, variants, symbols = KERNELS[kernel]
+    src_path = os.path.join(CSRC, source)
+    with open(src_path) as fd:
         committed = fd.read()
     sources = {"committed": committed}
-    for name, (subs, _, _) in VARIANTS.items():
+    for name, (subs, _, _) in variants.items():
         src = committed
         for old, new in subs:
             if src.count(old) != 1:
-                raise SystemExit(f"variant {name}: the text it replaces is not in {SRC} once")
+                raise SystemExit(f"variant {name}: the text it replaces is not in {src_path} once")
             src = src.replace(old, new)
         sources[name] = src
     procs = {}
@@ -95,21 +176,25 @@ def build(tmp: str) -> dict:
         with open(path, "w") as fd:
             fd.write(src)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", path[:-3] + ".so", path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", CSRC, "-shared", "-o", path[:-3] + ".so",
+             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"nvcc failed on variant {name}:\n{out[-4000:]}")
+        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", out)})
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", out))
+        print(f"{name}: ptxas {regs[0]}-{regs[-1]} registers, {spills} bytes spilled",
+              flush=True)
         lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
-        for fn in ("radix_sort_tile_elems", "radix_sort_first_pass", "radix_sort_passes"):
+        for fn in symbols:
             getattr(lib, fn).restype, getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
         libs[name] = lib
     return libs
 
 
-def shapes(dev) -> dict:
+def sort_shapes(dev) -> dict:
     import chip_smoke
     from khoice_tpu_torch.engine.ksweep import _doubled_elements
     from khoice_tpu_torch.engine.occurrence import pack_members
@@ -144,8 +229,57 @@ def split_ms(sort_words, words, payload, reps: int) -> dict:
     return out
 
 
+def scan_shapes(dev) -> dict:
+    """{label: (the wrapper, its arguments)} at phase 3's scan shapes."""
+    import chip_smoke
+    from khoice_tpu_torch.engine.ksweep import _sweep_doubled, plan_sweep
+    from khoice_tpu_torch.engine.occurrence import pack_members
+    from khoice_tpu_torch.kernels import ksweep_scan
+
+    rng = np.random.default_rng(0)
+    bench = chip_smoke.random_members(rng, 8, 1 << 21)
+    chip_smoke.random_members(rng, 96, 1 << 20)  # phase 3's next draw
+    wide = chip_smoke.random_members(rng, 64, 1 << 16)
+    groups = chip_smoke.random_members(rng, 4, 1 << 21)
+    wide_c = chip_smoke.random_members(rng, 63, 1 << 15)
+    pivot = np.concatenate([bench[0], np.tile(bench[0][1000:1060], 3000)])
+    # 8 members sharing one ancestor, 1% SNPs each, as the generated
+    # databases' groups (tools/gen_realistic_db.py): runs cross threads,
+    # warps and tiles at every k
+    ancestor = chip_smoke.random_members(rng, 1, 1 << 21)[0]
+    related = []
+    for _ in range(8):
+        m = ancestor.copy()
+        pos = rng.integers(0, m.shape[0], m.shape[0] // 100)
+        m[pos] = rng.integers(0, 4, pos.shape[0], dtype=np.uint8)
+        related.append(m)
+    grid = chip_smoke.K_GRID
+    out = {}
+    for label, members, ks, mode, mp in (
+            ("occ bench", bench, grid, "occ", None),
+            ("occ 64 members", wide, grid, "occ", None),
+            ("occ unpacked KW 2", bench, list(range(11, 32)), "occ", None),
+            ("pivot_rest", bench, grid, "pivot_rest", 7),
+            ("multi_pivot", bench, grid, "multi_pivot", 4),
+            ("containment", bench + groups, grid, "containment", (8, 4)),
+            ("buckets", [pivot] + bench[1:5], grid, "buckets", (4, 255)),
+            ("containment 63", wide_c, grid, "containment", (42, 21)),
+            ("occ related", related, grid, "occ", None),
+            ("buckets related", related[:5], grid, "buckets", (4, 255))):
+        classes, _rest = plan_sweep(ks, len(members))
+        kmax, KW, cks, packed = classes[0]
+        codes, gids = pack_members(members, dev)
+        words, pay = _sweep_doubled(codes, gids, kmax, KW, packed)
+        if mode == "occ":
+            out[label] = (ksweep_scan.scan_multi_k, (words, pay, cks, len(members), 5000, packed))
+        else:
+            out[label] = (ksweep_scan.scan_classify, (words, pay, cks, mode, mp, packed))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="sort")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -156,38 +290,46 @@ def main():
 
     print(chip_smoke.smi_line(), flush=True)
     dev = torch.device("cuda")
+    variants = KERNELS[args.kernel][1]
     load = _build.load
-    load()  # the port's library: the shapes' extraction kernel
+    load()  # the port's library: the shapes' extraction and sort kernels
+    if args.kernel == "sort":
+        cases = {label: (ksort.sort_words, inputs) for label, inputs in sort_shapes(dev).items()}
+    else:
+        cases = scan_shapes(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(tmp)
+        libs = build(tmp, args.kernel)
         try:
-            for label, (words, payload) in shapes(dev).items():
-                run = ["committed"] + [n for n, (_, _, only) in VARIANTS.items()
+            for label, (fn, inputs) in cases.items():
+                run = ["committed"] + [n for n, (_, _, only) in variants.items()
                                        if only is None or label in only]
                 times = {name: [] for name in run}
                 want = None
                 for order in (run, run[::-1]):
                     for name in order:
                         _build.load = lambda name=name: libs[name]
-                        got = ksort.sort_words(words, payload)
+                        got = fn(*inputs)
+                        got = got if isinstance(got, tuple) else (got,)
                         torch.cuda.synchronize()
                         if want is None:
                             want = got
-                        elif name != "committed" and VARIANTS[name][1] and not all(
+                        elif name != "committed" and variants[name][1] and not all(
                                 g is None or torch.equal(g, w) for g, w in zip(got, want)):
                             raise AssertionError(f"variant {name} differs on {label}")
                         del got
-                        times[name].append(chip_smoke.time_ms(
-                            lambda: ksort.sort_words(words, payload), args.reps))
+                        times[name].append(chip_smoke.time_ms(lambda: fn(*inputs), args.reps))
                 _build.load = lambda: libs["committed"]
-                ksort.sort_words(words, payload)
-                passes = len(ksort.last_plan[0])
-                split = split_ms(ksort.sort_words, words, payload, args.reps)
-                print(f"{label} ({passes} passes): " + ", ".join(
+                head = label
+                if args.kernel == "sort":
+                    fn(*inputs)
+                    head = f"{label} ({len(ksort.last_plan[0])} passes)"
+                print(f"{head}: " + ", ".join(
                     f"{name} {np.mean(t):.3f} ms ({t[0]:.3f} / {t[1]:.3f})"
                     for name, t in times.items()), flush=True)
-                print(f"  committed, ms per sort by kernel: "
-                      + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+                if args.kernel == "sort":
+                    split = split_ms(fn, *inputs, args.reps)
+                    print(f"  committed, ms per sort by kernel: "
+                          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
                 del want
         finally:
             _build.load = load
