@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
-  1. device: require CUDA; print the card's name and power limit.
+  1. device: require CUDA and the port beside the script (alone in a
+     directory the script exits 1 here); print the card's name and
+     power limit.
   2. build: compile khoice_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
      process per source; print ptxas's registers and spills per kernel.
   3. kernels vs plain: each kernel and its plain PyTorch version on the
@@ -37,8 +39,8 @@ Phases (any failure raises, so the exit code is non-zero):
        {7, 15, 16, 31, 32, 49, 63}, keys and the gid-packed form;
      - the occurrence-histogram kernel, packed (B), on the sorted words of
        96 members x 2^20 at k = 31 and 49 (one member with a poly-A
-       tract, so runs cross blocks), and unpacked (C) on 300 members x
-       2^16 at k = 31.
+       tract, so runs cross tiles), and unpacked (C) on 300 members x
+       2^16 at k = 31; each one's time over its bound is printed.
   4. main paths through the port's CLI entry point:
      a. on a generated 4 datasets x 8 genomes x 2 Mbp database:
         `run --exp-type 1`, then 2, 3 and 4 in one work root (exp0 runs
@@ -60,8 +62,9 @@ Phases (any failure raises, so the exit code is non-zero):
      the largest device-memory estimate that the engine checked against
      its budget (with what the run held at the check) is printed beside
      the run's peak, with the checked step whose own peak comes nearest
-     to (or furthest over) its estimate, and the run's peak must not
-     exceed the estimate.  Each kernel call is
+     to (or furthest over) its estimate; the run's peak must not exceed
+     the largest estimate, nor any checked step's peak its own.  Each
+     kernel call is
      timed (CUDA events) and held against its plain version on the same
      inputs, exactly, after its timed span: every scan call of 4a, the
      first SORT_HOLDS sorts of each 4a/4b run, in 4b every extraction
@@ -74,7 +77,8 @@ Phases (any failure raises, so the exit code is non-zero):
   5. small worlds, against a dict-based canonical k-mer counter written
      here: the step_4/step_8 histograms that `run_exp1` writes on the card
      for 2 groups x 3 genomes, then for a group of 70 genomes and one of
-     300 (per-k, packed and unpacked) on a 2-k and a 7-k grid; the four
+     300 (per-k, packed and unpacked) on a 2-k and a 7-k grid (each
+     kernel call timed, every C call held against its plain version); the four
      classification sweeps; and count_codes, union, intersect_sum,
      subtract and histogram at k in {11, 31, 45}.  (The CSV bytes are
      held against the JAX package and its oracle by the CPU tests.)
@@ -126,6 +130,11 @@ def device_check():
     phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs an NVIDIA GPU")
+    # the port is built and driven from the checkout this script lies in;
+    # alone in a directory the script has nothing to run
+    if not os.path.isdir(os.path.join(ROOT, "khoice_tpu_torch", "csrc")):
+        raise SystemExit(f"chip_smoke: no khoice_tpu_torch/ beside {__file__}; run it from the "
+                         "root of a checkout of the repository")
     print(smi_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -143,8 +152,8 @@ def build():
     # "Used R registers"; one line per kernel: its instantiations' registers
     name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
-        m = re.search(r"entry function '.*?((?:occ_)?(?:tile_summaries|tile_carries|count_runs)|scan_tiles"
-                      r"|extract_kernel|(?:first|middle|last)_pass_kernel)", line)
+        m = re.search(r"entry function '.*?(occ_tiles|scan_tiles|extract_kernel"
+                      r"|(?:first|middle|last)_pass_kernel)", line)
         if m:
             name = m.group(1)
         elif name and "spill stores" in line:
@@ -440,8 +449,7 @@ def perk_kernels_vs_plain(rng, members96):
                     lambda: occ_scan.occ_hist_packed(words, 96, 5000),
                     lambda: occ_scan.occ_hist_packed_reference(words, 96, 5000), (words,))
         errs.append(r["max_abs_err"])
-        if k == 31:
-            results["B"] = r
+        results["B" if k == 31 else f"B k={k}"] = r
         del words
     results["B"]["max_abs_err"] = max(errs)
     del codes, gids
@@ -452,6 +460,9 @@ def perk_kernels_vs_plain(rng, members96):
                            lambda: occ_scan.occ_hist(keys, gid, 300, 5000),
                            lambda: occ_scan.occ_hist_reference(keys, gid, 300, 5000),
                            (keys, gid))
+    print("occurrence histograms' time over their bound: " + ", ".join(
+        f"{label} {results[key]['ms'] / results[key]['bound_ms']:.1f}x"
+        for label, key in (("B k=31", "B"), ("B k=49", "B k=49"), ("C", "C"))), flush=True)
     return results
 
 
@@ -750,6 +761,10 @@ def run_path(label, argv, hold, uses, expect_lines, scan_plain=True, per_call=No
         if held.peak() > est.largest():
             raise AssertionError(f"{label}: peak {held.peak()} B over the estimate "
                                  f"{est.largest()} B")
+        over = [step for step in est.steps[1:] if step[2] > step[1]]
+        if over:
+            raise AssertionError(f"{label}: checked steps over their own estimates "
+                                 f"(label, estimate B, peak B): {over}")
     if per_call is None:
         per_call = ("occ",) + MODES if scan_plain else ()
     per = held.report(per_call)
@@ -1047,10 +1062,13 @@ def small_world_exp1(tmp):
     big[1] = big[1][:70]
     for ks in ([21, 31], [5, 12, 21, 31, 33, 45, 61]):
         out = os.path.join(tmp, f"small_big_{len(ks)}")
-        reset_counts()
-        run_exp1(big, ks, out, "cuda")
-        torch.cuda.synchronize()
-        counts = read_counts()
+        # every call timed, C's held against its plain version
+        with Held(kernel_specs(False), lambda kernel, k, nth: kernel == "C") as held:
+            reset_counts()
+            run_exp1(big, ks, out, "cuda")
+            torch.cuda.synchronize()
+            counts = read_counts()
+        c_calls = held.report(per_call=("C",))["C"]
         for kernel in ("A", "B", "C"):
             if counts[kernel] < 1:
                 raise AssertionError(f"70 + 300 genomes, ks {ks}: the {kernel} kernel "
@@ -1061,8 +1079,9 @@ def small_world_exp1(tmp):
               f"C {counts['C']}, occ {counts['occ']}", flush=True)
     # C's record reports the last run alone, counted from 0 just before it
     print(f"kernel C's launches in the kernels line: run_exp1 on groups of 70 and 300 "
-          f"genomes, ks {ks}: {counts['C']}")
-    return counts["C"]
+          f"genomes, ks {ks}: {counts['C']}; its calls {c_calls['ms']:.3f} ms in all, bound "
+          f"{c_calls['bound_ms']:.3f} ms, {c_calls['held']} held, equal", flush=True)
+    return counts["C"], held.errors.get("C", 0)
 
 
 def small_world_classify():
@@ -1229,7 +1248,8 @@ def main():
         print(f"radix_sort launches per run (each counted from 0): {sorts}; the kernels "
               f"line reports {SORT_RUN!r}: {launches['sort']}", flush=True)
         t0 = time.perf_counter()
-        launches["C"] = small_world_exp1(tmp)
+        launches["C"], c_err = small_world_exp1(tmp)
+        merge({"C": c_err}, errors)
         small_world_classify()
         small_world_tables()
         walls["small worlds"] = time.perf_counter() - t0

@@ -19,7 +19,8 @@ from typing import List
 import numpy as np
 import torch
 
-from ..engine.ops import _run_starts, _run_sums
+from ..engine.bits import words_starts
+from ..engine.ops import _run_sums
 from ..engine.table import KmerTable
 from ..kernels.sort import sort_words
 
@@ -53,7 +54,7 @@ def build_annotation(pivot: KmerTable, groups: List[KmerTable]) -> Annotation:
     skeys, perm = sort_words(torch.cat([t.keys for t in tables], 1),
                              torch.arange(src.shape[0], device=pivot.device))
     src, counts = src[perm], counts[perm]
-    is_new = _run_starts(skeys)
+    is_new = words_starts(skeys)
     pivot_count = _run_sums(torch.where(src == 0, counts, 0), is_new)
     bit = torch.bitwise_left_shift(torch.ones_like(src), (src - 1).clamp(min=0))
     mask = _run_sums(torch.where(src > 0, bit, 0), is_new)

@@ -52,3 +52,15 @@ def words_select(pred: torch.Tensor, a, b) -> torch.Tensor:
 
 def words_is_sentinel(a: torch.Tensor) -> torch.Tensor:
     return (a == SENTINEL).all(0)
+
+
+def words_starts(a: torch.Tensor) -> torch.Tensor:
+    """bool [n]: column i of sorted [W, n] words differs from column i - 1
+    (True at 0), the starts of its runs.  Each row is compared with itself
+    one element on, through views (no shifted copy of the rows)."""
+    is_new = torch.ones(a.shape[1], dtype=torch.bool, device=a.device)
+    same = is_new[1:]  # "equal" until inverted
+    for row in a:
+        same &= row[1:] == row[:-1]
+    same.logical_not_()
+    return is_new

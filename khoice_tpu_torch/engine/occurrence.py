@@ -37,7 +37,7 @@ import torch
 from ..kernels.extract import GID_BITS, PACK_KMAX, extract_canonical, extract_packed
 from ..kernels.occ_scan import occ_hist, occ_hist_packed, run_occurrences
 from ..kernels.sort import sort_words
-from .bits import SENTINEL, key_words, words_is_sentinel, words_select
+from .bits import key_words
 from .table import KmerTable
 
 
@@ -72,17 +72,23 @@ def gid_packable(n_members: int, k: int) -> bool:
 
 
 def unpack_keys_static(sp: torch.Tensor, k: int) -> torch.Tensor:
-    """key_words(k)-layout keys from sorted packed words: key = packed >>
-    GID_BITS, and the SENTINEL where the packed value is all ones."""
+    """key_words(k)-layout keys from gathered packed words, computed in
+    place (sp is overwritten): key = packed >> GID_BITS, one row at a
+    time.  sp holds no SENTINEL (occurrence_table drops that run first)."""
     ow = sp.shape[0]
-    wk = key_words(k)
-    shifted = sp >> GID_BITS
-    shifted[1:] |= (sp[:-1] << (32 - GID_BITS)) & 0xFFFFFFFF
-    if wk >= ow:
-        keys = torch.cat([sp.new_zeros(wk - ow, sp.shape[1]), shifted])
-    else:
-        keys = shifted[ow - wk:]  # the leading words are zero
-    return words_select(words_is_sentinel(sp), SENTINEL, keys)
+    for j in range(ow - 1, -1, -1):
+        sp[j] >>= GID_BITS
+        if j:
+            low = sp[j - 1] & ((1 << GID_BITS) - 1)
+            low <<= 32 - GID_BITS
+            sp[j] |= low
+            del low
+    wk = key_words(k)  # 4 for every k of 32-63, so one more than ow at k 32-44
+    if wk > ow:
+        keys = sp.new_zeros(wk, sp.shape[1])
+        keys[wk - ow:] = sp
+        return keys
+    return sp[ow - wk:].clone() if wk < ow else sp  # the leading words are zero
 
 
 def _sorted_pairs(codes: torch.Tensor, gids: torch.Tensor, k: int, packed: bool):
@@ -129,9 +135,14 @@ def occurrence_table(member_codes: Sequence[np.ndarray], k: int, device,
     codes, gids = pack_members(member_codes, device)
     packed = gid_packable(len(member_codes), k)
     words, gid = _sorted_pairs(codes, gids, k, packed)
+    del codes, gids
+    # after the sort, each step frees what the next does not need
+    # (engine/streaming.py::occurrence_table_bytes)
     starts, occ = run_occurrences(words, gid, cs)
+    if starts.shape[0] and not occ[-1]:  # the SENTINEL run
+        starts, occ = starts[:-1], occ[:-1]
     keys = words[:, starts]
+    del words, gid, starts
     if packed:
         keys = unpack_keys_static(keys, k)
-    keep = occ > 0
-    return KmerTable(keys=keys[:, keep].contiguous(), counts=occ[keep], k=k)
+    return KmerTable(keys=keys, counts=occ, k=k)

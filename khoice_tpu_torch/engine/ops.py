@@ -19,8 +19,8 @@ Semantics, as the reference pipeline relies on them:
   hist[i-1] = number of present keys with count == i, i in 1..cx.
 
 Tables are compact (engine/table.py).  Sorts are the port's multi-word
-radix sort (kernels/sort.py); run sums come from run ids
-(cumsum of the run starts) and a segment sum, not from the JAX package's
+radix sort (kernels/sort.py); run sums come from running sums at the
+run ends (union) or run lengths (counting), not from the JAX package's
 reverse cummin, which cost 750 ms over an exp1 run on an H100.
 """
 
@@ -30,13 +30,11 @@ import torch
 
 from ..kernels.extract import extract_canonical
 from ..kernels.sort import sort_words
-from .bits import words_eq, words_is_sentinel
+from .bits import words_starts
 from .table import KmerTable
 
 __all__ = [
     "count_codes",
-    "count_keys",
-    "dedupe_sorted",
     "set_counts",
     "union_many",
     "intersect_sum",
@@ -47,14 +45,6 @@ __all__ = [
 ]
 
 
-def _run_starts(keys: torch.Tensor) -> torch.Tensor:
-    """is_new[i] = keys[i] != keys[i-1] (run boundaries of sorted keys)."""
-    is_new = ~words_eq(keys, torch.roll(keys, 1, dims=1))
-    if is_new.shape[0]:
-        is_new[0] = True
-    return is_new
-
-
 def _run_sums(values: torch.Tensor, is_new: torch.Tensor) -> torch.Tensor:
     """int64 [runs]: each run's sum of `values`."""
     run_id = torch.cumsum(is_new, 0) - 1
@@ -62,28 +52,23 @@ def _run_sums(values: torch.Tensor, is_new: torch.Tensor) -> torch.Tensor:
     return sums.index_add_(0, run_id, values.to(torch.int64))
 
 
-def dedupe_sorted(keys: torch.Tensor, counts: torch.Tensor, cs: int) -> tuple:
-    """Collapse the runs of equal keys of a sorted array, summing counts
-    (saturating at cs); SENTINEL keys and zero sums are dropped.  Returns
-    (unique keys int64 [W, m], counts int64 [m])."""
-    is_new = _run_starts(keys)
-    sums = _run_sums(counts, is_new).clamp(max=cs)
-    ukeys = keys[:, is_new]
-    keep = (sums > 0) & ~words_is_sentinel(ukeys)
-    return ukeys[:, keep].contiguous(), sums[keep]
-
-
-def count_keys(keys: torch.Tensor, valid: torch.Tensor, k: int, cs: int = 255) -> KmerTable:
-    """A count table from extracted canonical keys and their validity."""
-    skeys, _ = sort_words(keys[:, valid].contiguous())
-    ukeys, ucounts = dedupe_sorted(skeys, torch.ones_like(skeys[0]), cs)
-    return KmerTable(keys=ukeys, counts=ucounts, k=k)
+def _count_sorted(skeys: torch.Tensor, k: int, cs: int) -> KmerTable:
+    """A count table from sorted valid keys: each run's length, capped at
+    cs (no key is the SENTINEL)."""
+    starts = torch.nonzero(words_starts(skeys)).squeeze(1)
+    counts = torch.diff(starts, append=starts.new_full((1,), skeys.shape[1])).clamp_(max=cs)
+    return KmerTable(keys=skeys[:, starts], counts=counts, k=k)
 
 
 def count_codes(codes: torch.Tensor, k: int, cs: int = 255) -> KmerTable:
-    """Canonical k-mer counting over uint8 codes (KMC `kmc -ci1` role)."""
+    """Canonical k-mer counting over uint8 codes (KMC `kmc -ci1` role).
+    Each step frees what the next does not need
+    (engine/streaming.py::count_bytes)."""
     keys, valid = extract_canonical(codes, k)
-    return count_keys(keys, valid, k, cs)
+    keys = keys[:, valid]
+    del valid
+    keys = sort_words(keys)[0]
+    return _count_sorted(keys, k, cs)
 
 
 def set_counts(t: KmerTable, c: int) -> KmerTable:
@@ -93,45 +78,69 @@ def set_counts(t: KmerTable, c: int) -> KmerTable:
 
 
 def union_many(tables: list, cs: int = 5000) -> KmerTable:
-    """n-way union with counter sum (kmc_tools complex '+', -cs{cs})."""
+    """n-way union with counter sum (kmc_tools complex '+', -cs{cs}).
+    Table keys are unique, never the SENTINEL, and their counts > 0, so
+    every run of the sorted keys is kept; its sum is the running count at
+    its end minus the one at the previous run's end.  Each step frees what
+    the next does not need (engine/streaming.py::table_merge_bytes)."""
     k = tables[0].k
     for t in tables:
         assert t.k == k and t.n_words == tables[0].n_words
     skeys, scounts = sort_words(torch.cat([t.keys for t in tables], 1),
                                 torch.cat([t.counts for t in tables]))
-    ukeys, ucounts = dedupe_sorted(skeys, scounts, cs)
-    return KmerTable(keys=ukeys, counts=ucounts, k=k)
+    n = skeys.shape[1]
+    starts = torch.nonzero(words_starts(skeys)).squeeze(1)
+    cum = torch.cumsum(scounts, 0)
+    del scounts
+    ends = torch.empty_like(starts)
+    ends[:-1] = starts[1:] - 1
+    ends[-1:] = n - 1
+    at_end = cum[ends]
+    del cum, ends
+    sums = torch.diff(at_end, prepend=at_end.new_zeros(1)).clamp_(max=cs)
+    del at_end
+    return KmerTable(keys=skeys[:, starts], counts=sums, k=k)
 
 
 def _merge_two(a: KmerTable, b: KmerTable):
-    """(keys in both, a's counts, b's counts there; keys of a only, a's
-    counts there).  Keys are unique within each table, so after one sort
-    a key of both is a pair of neighbours, a's first (the sort is stable)."""
+    """(sorted keys of a and b, the sort's order as indices into a's rows
+    then b's, the positions i whose key repeats at i + 1).  Keys are
+    unique within each table, so a key of both is a pair of neighbours,
+    a's first (the sort is stable)."""
     assert a.k == b.k and a.n_words == b.n_words
-    na = len(a)
-    idx = torch.arange(na + len(b), device=a.device)
-    skeys, sidx = sort_words(torch.cat([a.keys, b.keys], 1), idx)
-    counts = torch.cat([a.counts, b.counts])[sidx]
-    from_a = sidx < na
-    pair = words_eq(skeys[:, 1:], skeys[:, :-1])  # element i+1 repeats element i
-    both = torch.nonzero(pair).squeeze(1)
-    paired = torch.zeros_like(from_a)
-    paired[both] = True
-    only_a = from_a & ~paired
-    return (skeys[:, both], counts[both], counts[both + 1],
-            skeys[:, only_a], counts[only_a])
+    skeys, order = sort_words(torch.cat([a.keys, b.keys], 1),
+                              torch.arange(len(a) + len(b), device=a.device))
+    dup = words_starts(skeys)[1:].logical_not_()  # element i + 1 repeats i
+    return skeys, order, torch.nonzero(dup).squeeze(1)
 
 
+# intersect_sum and subtract free the sorted keys and order as soon as
+# they have what they need, so what follows the sort holds less than the
+# sort (engine/streaming.py::table_merge_bytes)
 def intersect_sum(a: KmerTable, b: KmerTable, cs: int = 255) -> KmerTable:
     """`kmc_tools simple a b intersect -ocsum` (keys in both, counts summed)."""
-    keys, ca, cb, _, _ = _merge_two(a, b)
-    return KmerTable(keys=keys.contiguous(), counts=(ca + cb).clamp(max=cs), k=a.k)
+    skeys, order, both = _merge_two(a, b)
+    ia, ib = order[both], order[both + 1]
+    del order
+    keys = skeys[:, both]
+    del skeys, both
+    counts = a.counts[ia] + b.counts[ib - len(a)]
+    return KmerTable(keys=keys, counts=counts.clamp_(max=cs), k=a.k)
 
 
 def subtract(a: KmerTable, b: KmerTable) -> KmerTable:
     """`kmc_tools simple a b kmers_subtract` (keys of a not in b)."""
-    _, _, _, keys, counts = _merge_two(a, b)
-    return KmerTable(keys=keys.contiguous(), counts=counts, k=a.k)
+    skeys, order, both = _merge_two(a, b)
+    only_a = order < len(a)
+    only_a[both] = False
+    del both
+    sel = torch.nonzero(only_a).squeeze(1)
+    del only_a
+    idx = order[sel]
+    del order
+    keys = skeys[:, sel]
+    del skeys, sel
+    return KmerTable(keys=keys, counts=a.counts[idx], k=a.k)
 
 
 def histogram(t: KmerTable, cx: int = 10000) -> torch.Tensor:

@@ -29,6 +29,7 @@ from .streaming import (
     check_device_budget,
     count_bytes,
     default_device_budget_bytes,
+    occurrence_table_bytes,
     perk_bytes,
     table_merge_bytes,
 )
@@ -57,7 +58,9 @@ class KmerEngine:
     def occurrence_table(self, member_codes: Sequence[np.ndarray], k: int,
                          cs: int = 5000) -> KmerTable:
         total = sum(int(c.shape[0]) + 1 for c in member_codes)
-        self._check(perk_bytes(total, [k], len(member_codes)), f"occurrence table (k={k})")
+        self._check(max(perk_bytes(total, [k], len(member_codes)),
+                        occurrence_table_bytes(total, k, len(member_codes))),
+                    f"occurrence table (k={k})")
         return occurrence_table(member_codes, k, self.device, cs=cs)
 
     # ---------- table transforms ----------

@@ -147,12 +147,46 @@ def perk_bytes(total_positions: int, ks: Sequence[int], n_members: int) -> int:
     return worst + _RESIDENT_BYTES * total_positions + _ALLOCATOR_SLACK
 
 
+def occurrence_table_bytes(total_positions: int, k: int, n_members: int) -> int:
+    """Estimated peak device bytes of occurrence_table after its sort
+    (engine/occurrence.py, kernels/occ_scan.py::run_occurrences) over
+    n = total_positions elements sorted into S bytes (the W gathered rows,
+    and the gid row when the gid is apart), for any number R <= n of key
+    runs; the codes and gids are freed after the sort.  Beside S, in turn:
+      the key and pair starts (2 n) and the compares' temporaries: a
+      bool row, or packed the last rows' XOR and its compare (9 n)   11 n
+      the pair starts, the run starts and the running count C        n + 8 R + c n
+      C, the starts, occ and C at each start with its difference    c n + 24 R
+      the starts, occ and the gathered rows                          16 R + 8 W R
+    with c = 4 (int32 C) below 2^31 elements.  After the gather S is
+    freed; the packed rows are unpacked in place (a row's temporary) and
+    then, at k 32-44, copied into the keys' four words:
+      occ, the gathered rows and a row, or the keys        8 R + 8 W R + 8 max(1, wk) R
+    R = n bounds them, and c + 24 is the largest of the first three."""
+    n = total_positions
+    wk = key_words(k)
+    if gid_packable(n_members, k):
+        W, S = occ_words_static(k), 8 * occ_words_static(k) * n
+    else:
+        W, S = wk, 8 * (wk + 1) * n
+    c = 4 if n < 2**31 else 8
+    return max(S + n * max(c + 24, 16 + 8 * W), 8 * n * (1 + W + wk)) + _ALLOCATOR_SLACK
+
+
 def count_bytes(n_codes: int, k: int) -> int:
     """Estimated peak device bytes of counting the k-mers of `n_codes`
-    codes (engine/ops.py::count_codes): the codes, the canonical keys and
-    their validity beside the sort of the valid keys (at most all)."""
+    codes (engine/ops.py::count_codes), the codes (1 B each) resident
+    throughout, for any number of valid keys nv <= n and runs R <= nv:
+      the canonical keys and validity, the mask's index (8 B) and the
+      compacted keys                                   (8 wk + 1) n + (8 + 8 wk) nv
+      the sort of the compacted keys (the rest freed)   _sort_bytes(nv, wk)
+      the sorted keys, a run-start flag and a compare
+      (2 nv), or the run starts, the lengths with their
+      temporary, and the gathered keys               8 wk nv + 16 R + 8 wk R
+    nv = R = n bounds them, and the last line bounds the first."""
     wk = key_words(k)
-    return _sort_bytes(n_codes, wk) + n_codes * (8 * wk + 2) + _ALLOCATOR_SLACK
+    n = n_codes
+    return n + max(_sort_bytes(n, wk), n * (16 * wk + 16)) + _ALLOCATOR_SLACK
 
 
 def table_merge_bytes(n_keys: int, n_words: int) -> int:
@@ -168,9 +202,10 @@ def annotation_bytes(n_keys: int, n_words: int) -> int:
     """Estimated device bytes of classify/annotate.py::build_annotation
     over `n_keys` keys beside its input tables: a table op's sort (an
     index payload) with each key's source and count beside it, or what
-    follows it, whichever holds more: the sorted keys and their shifted
-    copy (16 B per word), the order, sources and counts gathered (and
-    their old copies), the run ids and the member bits (66 B per key)."""
+    follows it, whichever holds more: the sorted keys and the
+    concatenation the sort read, alive as it returns (16 B per word), the
+    order, sources and counts gathered (and their old copies), the run
+    ids and the member bits (66 B per key)."""
     return max(table_merge_bytes(n_keys, n_words) + 16 * n_keys,
                (16 * n_words + 66) * n_keys + _ALLOCATOR_SLACK)
 

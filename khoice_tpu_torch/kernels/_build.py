@@ -3,9 +3,8 @@
 At first use, one `nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17
 -O3 -Xcompiler -fPIC -c` per `khoice_tpu_torch/csrc/*.cu`, all started
 together, then one `nvcc -shared` link, into `khoice_tpu_torch/_build/`
-(git-ignored), keyed by a hash of the sources, their shared headers
-(`csrc/*.cuh`) and the flags, so an edit rebuilds and an unchanged tree
-reuses the library.  The sources expose a
+(git-ignored), keyed by a hash of the sources and the flags, so an edit
+rebuilds and an unchanged tree reuses the library.  The sources expose a
 plain C interface, bound with ctypes.
 """
 
@@ -60,7 +59,7 @@ _SIGNATURES = {
     "occ_scan_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]),
 }
 
@@ -85,7 +84,7 @@ def _sources() -> list:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources() + sorted(glob.glob(os.path.join(SRC_DIR, "*.cuh"))):
+    for src in _sources():
         with open(src, "rb") as fd:
             h.update(os.path.basename(src).encode() + fd.read())
     return os.path.join(BUILD_DIR, f"libkhoice_kernels_{h.hexdigest()[:16]}.so")

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..engine.bits import words_eq, words_is_sentinel
+from ..engine.bits import words_is_sentinel, words_starts
 from . import _build
 from .extract import GID_BITS
 
@@ -31,33 +31,42 @@ launches = {"packed": 0, "unpacked": 0}
 def key_pair_starts(words: torch.Tensor, gid: torch.Tensor | None):
     """(key_new, pair_new) bool [n] of a sorted array: the element starts a
     key run / a (key, gid) pair.  gid None: the packed layout, the gid in
-    the last word's low GID_BITS."""
-    prev = torch.roll(words, 1, dims=1)
-    if gid is None:
-        key_eq = (words_eq(words[:-1], prev[:-1])
-                  & ((words[-1] >> GID_BITS) == (prev[-1] >> GID_BITS)))
-        pair_eq = words_eq(words, prev)
-    else:
-        key_eq = words_eq(words, prev)
-        pair_eq = key_eq & (gid == torch.roll(gid, 1))
-    key_new, pair_new = ~key_eq, ~pair_eq
-    if words.shape[1]:
-        key_new[0] = pair_new[0] = True
+    the last word's low GID_BITS.  Rows are compared through views
+    (engine/bits.py::words_starts)."""
+    key_new = words_starts(words if gid is not None else words[:-1])
+    pair_new = key_new.clone()
+    if words.shape[1] > 1:
+        if gid is None:
+            cur, prev = words[-1, 1:], words[-1, :-1]
+            pair_new[1:] |= cur != prev
+            key_new[1:] |= (cur ^ prev) >= (1 << GID_BITS)
+        else:
+            pair_new[1:] |= gid[1:] != gid[:-1]
     return key_new, pair_new
 
 
 def run_occurrences(words: torch.Tensor, gid: torch.Tensor | None, cs: int):
     """(index of each key run's first element, int64 occ per run) of a
     sorted array: occ = distinct gids in the run, capped at cs, 0 for the
-    SENTINEL run.  Run sums come from run ids (cumsum of the run starts)
-    and a segment sum."""
+    SENTINEL run (the last run, where there is one).  With C the running
+    count of pair starts, a run's occ is C before the next run's first
+    element minus C before its own; each step frees what the next does
+    not need (engine/streaming.py::occurrence_table_bytes)."""
+    n = words.shape[1]
     key_new, pair_new = key_pair_starts(words, gid)
     starts = torch.nonzero(key_new).squeeze(1)
-    run_id = torch.cumsum(key_new, 0) - 1
-    occ = torch.zeros(starts.shape[0], dtype=torch.int64, device=words.device)
-    occ.index_add_(0, run_id, pair_new.to(torch.int64))
-    occ = occ.clamp(max=cs)
-    occ[words_is_sentinel(words[:, starts])] = 0
+    del key_new
+    cum = torch.cumsum(pair_new, 0, dtype=torch.int32 if n < 2**31 else torch.int64)
+    del pair_new
+    occ = torch.empty(starts.shape[0], dtype=torch.int64, device=words.device)
+    if n:
+        at = cum[starts]  # C up to each run's first element, a pair start
+        occ[:-1] = at[1:] - at[:-1]
+        occ[-1:] = cum[-1:] - at[-1:] + 1
+        del at
+    del cum
+    occ.clamp_(max=cs)
+    occ[-1:].masked_fill_(words_is_sentinel(words[:, starts[-1:]]), 0)
     return starts, occ
 
 
@@ -100,15 +109,14 @@ def _launch(words: torch.Tensor, gid: torch.Tensor | None, n_bins: int, cs: int)
     with torch.cuda.device(dev):
         if n_bins > lib.occ_scan_bins_max():
             raise ValueError(f"{n_bins} bins do not fit a block's shared memory")
-        n_tiles = (n + lib.occ_scan_tile_elems() - 1) // lib.occ_scan_tile_elems()
-        tile_f = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-        tile_c = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-        carry = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+        # the look-back's status words, one per tile (element n, which
+        # closes the last run, lies in the last), then the tile counter
+        n_tiles = n // lib.occ_scan_tile_elems() + 1
+        status = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
         err = lib.occ_scan_launch(
             words.data_ptr(), None if gid is None else gid.data_ptr(), n, W,
-            int(gid is None), min(int(cs), 2**31 - 1), n_bins, tile_f.data_ptr(),
-            tile_c.data_ptr(), carry.data_ptr(), hist.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(gid is None), min(int(cs), 2**31 - 1), n_bins, status.data_ptr(),
+            hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"occ_scan launch failed: CUDA error {err}")

@@ -14,6 +14,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from khoice_tpu_torch.engine import streaming as st
 from khoice_tpu_torch.kernels import sort as ksort
@@ -121,13 +122,15 @@ def test_perk_bytes_per_layout(k, n_members, layout_bytes):
 
 
 def test_count_bytes_cover_the_keys_beside_the_sort():
-    """Counting keeps the codes, the canonical keys and their validity
-    beside the sort of the valid keys, which takes key_words(k) words (4
-    at k = 45, where the packed per-k layout also takes 4)."""
-    n = 1000
-    assert st.count_bytes(n, 45) == (st._sort_bytes(n, 4) + n * (8 * 4 + 2)
-                                     + st._ALLOCATOR_SLACK)
-    assert st.count_bytes(n, 45) > st.perk_bytes(n, [45], 1)
+    """Counting keeps the codes beside the larger of the compaction of the
+    valid keys, their sort (key_words(k) words: 4 at k = 45) and what
+    follows it (the sorted keys beside the run starts, lengths and the
+    gathered keys); the extracted keys are freed before the sort."""
+    n = 1_000_000
+    assert st.count_bytes(n, 45) == n + st._sort_bytes(n, 4) + st._ALLOCATOR_SLACK
+    # at 1-2 words what follows the sort holds more than the sort
+    assert st.count_bytes(n, 21) == n + n * (16 * 2 + 16) + st._ALLOCATOR_SLACK
+    assert st.count_bytes(n, 11) == n + n * (16 + 16) + st._ALLOCATOR_SLACK
 
 
 def test_budget_counts_what_the_run_holds(monkeypatch):
@@ -176,3 +179,150 @@ def test_engine_checks_its_annotation():
     eng.budget -= 1
     with pytest.raises(st.DeviceBudgetExceeded, match="annotation"):
         eng.annotate(pivot, [group])
+
+
+class _LiveOps(TorchDispatchMode):
+    """Live bytes of every storage that an aten op allocates under it,
+    from the op to the storage's release, and their peak; `paused` stops
+    the count (a sort whose own allocations _sort_bytes bounds)."""
+
+    def __init__(self, held=()):
+        super().__init__()
+        self.live = self.peak = 0
+        self.seen = {t.untyped_storage().data_ptr() for t in held}
+        self.paused = False
+
+    def _release(self, key, b):
+        self.live -= b
+        self.seen.discard(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.paused:
+            return out
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st_ = t.untyped_storage()
+            key = st_.data_ptr()
+            if key in self.seen or st_.nbytes() == 0:
+                continue
+            self.seen.add(key)
+            self.live += st_.nbytes()
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st_, self._release, key, st_.nbytes())
+        return out
+
+
+def _members(rng, n_members, length, related):
+    """Members of uniform bases with a few N, all copies of one when
+    related (runs of up to n_members elements), else unrelated (about one
+    run per element)."""
+    base = rng.integers(0, 4, length).astype(np.uint8)
+    out = []
+    for _ in range(n_members):
+        m = base.copy() if related else rng.integers(0, 4, length).astype(np.uint8)
+        m[rng.integers(0, length, 3)] = 4
+        out.append(m)
+    return out
+
+
+@pytest.mark.parametrize("related", [False, True])
+@pytest.mark.parametrize("k,n_members", [(11, 8), (31, 8), (40, 8), (49, 8), (60, 8), (31, 300), (61, 8)])
+def test_occurrence_table_bytes_bound_the_steps_peak(monkeypatch, k, n_members, related):
+    """occurrence_table after its sort: from the sorted words (handed
+    over, as the sort hands them) to the table, the peak of the live
+    bytes stays within occurrence_table_bytes, whether the runs are as
+    many as the elements (unrelated members) or fewer."""
+    from khoice_tpu_torch.engine import occurrence as occ
+
+    rng = np.random.default_rng(k * 1000 + n_members)
+    members = _members(rng, n_members, max(3000 // n_members * 8, 600), related)
+    codes, gids = occ.pack_members(members, "cpu")
+    packed = occ.gid_packable(n_members, k)
+    words, gid = occ._sorted_pairs(codes, gids, k, packed)
+    whole = words if gid is None else torch.cat([words, gid[None]])
+    want = occ.occurrence_table(members, k, "cpu")
+    mode = _LiveOps()
+
+    def sorted_pairs(codes, gids, k, packed):
+        s = whole.clone()  # the sort's output, counted from here
+        return (s, None) if packed else (s[:-1], s[-1])
+
+    monkeypatch.setattr(occ, "pack_members", lambda member_codes, device: (None, None))
+    monkeypatch.setattr(occ, "_sorted_pairs", sorted_pairs)
+    with mode:
+        got = occ.occurrence_table(members, k, "cpu")
+    assert torch.equal(got.keys, want.keys) and torch.equal(got.counts, want.counts)
+    assert mode.peak >= whole.numel() * 8
+    est = st.occurrence_table_bytes(codes.shape[0], k, n_members) - st._ALLOCATOR_SLACK
+    assert mode.peak <= est
+    if not related:  # as many runs as elements: the bound's own case, within ~1.3x
+        assert est <= 1.3 * mode.peak
+
+
+@pytest.mark.parametrize("k", [11, 21, 31, 45])
+def test_count_bytes_bound_the_steps_peak(monkeypatch, k):
+    """count_codes on one genome: the codes, the extraction's keys and
+    validity, the compaction, the sort's input and output and what
+    follows the sort stay within count_bytes.  The extraction and the
+    sort run uncounted and hand over their outputs (the kernels allocate
+    nothing else; the sort's own allocations are _sort_bytes', checked
+    above; on the CPU both run their plain versions)."""
+    from khoice_tpu_torch.engine import ops
+
+    rng = np.random.default_rng(k)
+    codes = torch.from_numpy(_members(rng, 1, 20000, False)[0])
+    want = ops.count_codes(codes, k)
+    mode = _LiveOps(held=(codes,))
+
+    def handed_over(fn):
+        def call(*args):
+            mode.paused = True
+            try:
+                out = fn(*args)
+            finally:
+                mode.paused = False
+            return tuple(None if t is None else t.clone() for t in out)
+        return call
+
+    monkeypatch.setattr(ops, "extract_canonical", handed_over(ops.extract_canonical))
+    monkeypatch.setattr(ops, "sort_words", handed_over(ops.sort_words))
+    with mode:
+        got = ops.count_codes(codes, k)
+    assert torch.equal(got.keys, want.keys) and torch.equal(got.counts, want.counts)
+    assert codes.numel() + mode.peak <= st.count_bytes(codes.numel(), k) - st._ALLOCATOR_SLACK
+
+
+@pytest.mark.parametrize("op", ["union", "intersect", "subtract"])
+@pytest.mark.parametrize("k,overlap", [(11, 0.5), (21, 0.9), (45, 0.0)])
+def test_table_merge_bytes_bound_the_steps_peak(monkeypatch, op, k, overlap):
+    """A table op beside its input tables: the concatenation, the sort's
+    input and output (its own allocations are _sort_bytes', checked
+    above) and what follows the sort stay within table_merge_bytes, with
+    few or many keys in both tables."""
+    from khoice_tpu_torch.engine import ops
+
+    rng = np.random.default_rng(k)
+    codes = _members(rng, 2, 20000, False)
+    codes[1][: int(20000 * overlap)] = codes[0][: int(20000 * overlap)]
+    a, b = (ops.count_codes(torch.from_numpy(c), k) for c in codes)
+    fn = {"union": lambda: ops.union_many([a, b]), "intersect": lambda: ops.intersect_sum(a, b),
+          "subtract": lambda: ops.subtract(a, b)}[op]
+    want = fn()
+    mode = _LiveOps(held=(a.keys, a.counts, b.keys, b.counts))
+    sort_words = ops.sort_words
+
+    def sort_outside(*args):
+        mode.paused = True
+        try:
+            out = sort_words(*args)
+        finally:
+            mode.paused = False
+        return tuple(t.clone() for t in out)  # the sort's output, counted from here
+
+    monkeypatch.setattr(ops, "sort_words", sort_outside)
+    with mode:
+        got = fn()
+    assert torch.equal(got.keys, want.keys) and torch.equal(got.counts, want.counts)
+    assert mode.peak <= st.table_merge_bytes(len(a) + len(b), a.n_words) - st._ALLOCATOR_SLACK

@@ -144,3 +144,100 @@ def test_occ_hist_ragged_and_all_sentinel(cuda):
     sent = torch.full((3, 70000), SENT, dtype=torch.int64, device=cuda)
     assert occ_scan.occ_hist_packed(sent, 10, 5000).sum() == 0
     assert occ_scan.occ_hist(sent[:2], sent[2], 10, 5000).sum() == 0
+
+
+def _pairs(key, gid, W, packed, device, sentinels=0):
+    """Sorted (key, gid) pairs in a layout: packed, int64 [W, n] words of
+    (key << 8) | gid (gid < 256, key < 2^(32 W - 8)); else (int64 [W, n]
+    key words, int64 [n] gid).  The last `sentinels` elements are the
+    SENTINEL (and gid 0xFFFFFFFF apart)."""
+    order = np.lexsort((gid, key))
+    key, gid = key[order].astype(np.int64), gid[order].astype(np.int64)
+    value = (key << 8) | gid if packed else key
+    rows = np.zeros((W, key.shape[0]), np.int64)
+    rows[W - 1] = value & 0xFFFFFFFF
+    if W > 1:
+        rows[W - 2] = value >> 32
+    if sentinels:
+        rows[:, -sentinels:] = SENT
+        gid[-sentinels:] = SENT
+    words = torch.from_numpy(rows).to(device)
+    return words if packed else (words, torch.from_numpy(gid).to(device))
+
+
+def _tile():
+    return occ_scan._build.load().occ_scan_tile_elems()
+
+
+def _case(name, rng, T):
+    """(sorted keys, gids) of a named edge case for a tile of T elements."""
+    if name == "one key":  # the look-back's chain crosses every tile
+        n = 5 * T + 3
+        return np.zeros(n, np.int64), rng.integers(0, 200, n)
+    if name == "distinct":
+        n = 3 * T + 1
+        return np.arange(n, dtype=np.int64) * 7, rng.integers(0, 200, n)
+    if name.startswith("run to a tile edge"):  # runs of T (+ 1) from each tile's start
+        extra = int(name[-2:])
+        key = np.repeat(np.arange(4), [T + extra, T, 7, 3 * T])
+        return key.astype(np.int64), np.arange(key.shape[0]) % 37
+    if name.startswith("n = T"):
+        n = T + int(name[5:])
+        return np.sort(rng.integers(0, n // 3 + 1, n)), rng.integers(0, 200, n)
+    if name == "more tiles than blocks":
+        n = 1200 * T + 1
+        return np.sort(rng.integers(0, n // 3, n)), rng.integers(0, 200, n)
+    raise ValueError(name)
+
+
+CASES = ["one key", "distinct", "run to a tile edge +0", "run to a tile edge +1",
+         "n = T-1", "n = T+0", "n = T+1", "more tiles than blocks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("W", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", CASES)
+def test_occ_hist_kernel_edges(cuda, name, W, packed):
+    """Each layout against its plain version on the look-back's and the
+    loads' edge cases, with cs and n_bins below the member count too;
+    one launch per call."""
+    rng = np.random.default_rng(len(name) * 10 + W)
+    key, gid = _case(name, rng, _tile())
+    if W == 1 and packed:
+        key = key % (1 << 24)
+        key.sort()
+    layout = "packed" if packed else "unpacked"
+    args = _pairs(key, gid, W, packed, cuda, sentinels=5)
+    counted = 0
+    for cs, n_bins in ((5000, 200), (3, 200), (5000, 60)):
+        before = occ_scan.launches[layout]
+        if packed:
+            got = occ_scan.occ_hist_packed(args, n_bins, cs)
+            want = occ_scan.occ_hist_packed_reference(args, n_bins, cs)
+        else:
+            got = occ_scan.occ_hist(*args, n_bins, cs)
+            want = occ_scan.occ_hist_reference(*args, n_bins, cs)
+        torch.cuda.synchronize()
+        assert occ_scan.launches[layout] == before + 1
+        assert torch.equal(got, want), (cs, n_bins)
+        counted += int(want.sum())
+    assert counted > 0
+
+
+@pytest.mark.cuda
+def test_occ_hist_kernel_most_bins_and_an_unaligned_gid(cuda):
+    """n_bins at occ_scan_bins_max() with runs of as many distinct gids;
+    a gid row at an 8-byte offset gives the same (the loads need 8-B
+    alignment only)."""
+    bins = occ_scan._build.load().occ_scan_bins_max()
+    sizes = [bins, bins - 1, 4, bins // 2, bins + 5]
+    key = np.repeat(np.arange(len(sizes), dtype=np.int64), sizes)
+    gid = np.concatenate([np.arange(s) for s in sizes])
+    keys, g = _pairs(key, gid, 2, False, cuda)
+    want = occ_scan.occ_hist_reference(keys, g, bins, 1 << 30)
+    assert want[bins - 1] == 1 and want[bins - 2] == 1
+    assert torch.equal(occ_scan.occ_hist(keys, g, bins, 1 << 30), want)
+    shifted = torch.cat([g.new_zeros(1), g])[1:]
+    assert shifted.data_ptr() % 16 == 8
+    assert torch.equal(occ_scan.occ_hist(keys, shifted, bins, 1 << 30), want)

@@ -83,7 +83,7 @@ def test_table_ops_equal_jax(rng, k):
     assert a.dump() == ja.dump()
 
 
-@pytest.mark.parametrize("n_members,k", [(4, 21), (4, 61), (260, 13)])
+@pytest.mark.parametrize("n_members,k", [(4, 21), (4, 40), (4, 61), (260, 13)])
 def test_occurrence_table_equals_jax(rng, n_members, k):
     """The gid-packed layout (4 members, k = 21) and key words with a
     separate gid (k = 61; 260 members)."""

@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Variants of a CUDA source of the port timed in turns against it.
 
-    python tools/sort_variants.py [--kernel sort|scan] [--reps 10]
+    python tools/sort_variants.py [--kernel sort|scan|occ] [--reps 10]
+                                  [--parent DIR]
 
 --kernel sort (the default): `khoice_tpu_torch/csrc/radix_sort.cu`;
---kernel scan: `khoice_tpu_torch/csrc/ksweep_scan.cu`.  Each variant is
-the source with a few lines replaced (SORT_VARIANTS, SCAN_VARIANTS),
-compiled alone with nvcc into a temporary directory and loaded in place
-of the port's library for the kernel's wrapper (`kernels/sort.py`,
-`kernels/ksweep_scan.py`), all in one process on one card.  The shapes
-are those of `chip_smoke.py` phase 3: for the sort the bench class, the
-unpacked class, the per-k packed words at k = 31 and 49 and a 2^24-key
-table merge; for the scan its five modes at the bench shape, the
-64-member and unpacked occ shapes and the 63-member containment, and occ
-and buckets over 8 related members (1% SNPs, as the generated
-databases' groups).  Each
+--kernel scan: `khoice_tpu_torch/csrc/ksweep_scan.cu`; --kernel occ:
+`khoice_tpu_torch/csrc/occ_scan.cu` (kernels B and C).  Each variant is
+the source with a few lines replaced (SORT_VARIANTS, SCAN_VARIANTS,
+OCC_VARIANTS), compiled alone with nvcc into a temporary directory and
+loaded in place of the port's library for the kernel's wrapper
+(`kernels/sort.py`, `kernels/ksweep_scan.py`, `kernels/occ_scan.py`),
+all in one process on one card.  The shapes are those of
+`chip_smoke.py` phase 3: for the sort the bench class, the unpacked
+class, the per-k packed words at k = 31 and 49 and a 2^24-key table
+merge; for the scan its five modes at the bench shape, the 64-member
+and unpacked occ shapes and the 63-member containment, and occ and
+buckets over 8 related members (1% SNPs, as the generated databases'
+groups); for occ, B on the sorted packed words of 96 x 2^20 at k = 31
+and 49 and of 96 related members (exp1's groups on 2 x 96) at k = 31,
+and C on 300 x 2^16 at k = 31.  `--parent DIR` adds the variant
+"parent": DIR/khoice_tpu_torch/csrc/occ_scan.cu of the three-pass
+kernel's tree (commit 54bd19a, unpacked with `git archive`; a source
+with another C signature is refused), called through that signature
+(its tile arrays), and "parent_3blocks", the same with at most 3
+blocks an SM (PARENT_VARIANTS).  Each
 shape times every variant twice, in the order committed, variants,
 variants reversed, committed (CUDA events over `--reps` calls); a
 variant that keeps the function must give the committed kernel's result
@@ -144,18 +154,58 @@ SCAN_VARIANTS = {
                       True, None),
     "x_no_pal": ([(PAL, "      pm[e] = 0u;")], False, ("occ bench",)),
 }
+# the histogram's lines that the variants replace
+OCC_MIN_BLOCKS = "constexpr int MIN_BLOCKS = 4; "
+OCC_WINDOWS = "constexpr int WINDOWS = 8; "
+OCC_LOAD_AT = "  const long long ia = base + lane;\n  const long long ib = ia + 32;"
+OCC_VARIANTS = {
+    "blocks_2": ([(OCC_MIN_BLOCKS, "constexpr int MIN_BLOCKS = 2; ")], True, None),
+    "blocks_8": ([(OCC_MIN_BLOCKS, "constexpr int MIN_BLOCKS = 8; ")], True, None),
+    "ept_8": ([(OCC_WINDOWS, "constexpr int WINDOWS = 4; ")], True, None),
+    "ept_32": ([(OCC_WINDOWS, "constexpr int WINDOWS = 16; ")], True, None),
+    # each lane reads its own 16 consecutive elements of the span, two
+    # neighbours a window, as the parent's threads did: what coalescing
+    # buys (the masks then mix positions, so the results are wrong)
+    "x_thread_contiguous": ([(OCC_LOAD_AT, "  const long long ia = base - (base % SPAN) + "
+                                           "lane * 2 * WINDOWS + 2 * ((base % SPAN) / 64);\n"
+                                           "  const long long ib = ia + 1;")],
+                            False, None),
+}
+# the parent's passes 1 and 3 with 72 KB of shared memory reserved, so at
+# most 3 blocks (768 threads) an SM instead of up to 8: whether its
+# per-thread loads thrash L1 (--parent only)
+PARENT_PASS1 = "  occ_tile_summaries<W, PACKED><<<n_tiles, NT, 0, st>>>(words, gid, n, tile_f, tile_c);"
+PARENT_VARIANTS = {
+    "parent_3blocks": [
+        (PARENT_PASS1, "  cudaFuncSetAttribute(occ_tile_summaries<W, PACKED>, "
+                       "cudaFuncAttributeMaxDynamicSharedMemorySize, 72 * 1024);\n"
+                       "  occ_tile_summaries<W, PACKED><<<n_tiles, NT, 72 * 1024, st>>>"
+                       "(words, gid, n, tile_f, tile_c);"),
+        ("  const int smem = n_bins * (int)sizeof(unsigned);",
+         "  const int smem = n_bins * (int)sizeof(unsigned) + 72 * 1024;")],
+}
 KERNELS = {
     "sort": ("radix_sort.cu", SORT_VARIANTS,
              ("radix_sort_tile_elems", "radix_sort_first_pass", "radix_sort_passes")),
     "scan": ("ksweep_scan.cu", SCAN_VARIANTS,
              ("ksweep_scan_tile_elems", "ksweep_scan_max_ks", "ksweep_scan_hist_bytes_max",
               "ksweep_scan_launch")),
+    "occ": ("occ_scan.cu", OCC_VARIANTS,
+            ("occ_scan_tile_elems", "occ_scan_bins_max", "occ_scan_launch")),
 }
+# the parent's occ_scan_launch: (words, gid, n, W, packed, cs, n_bins,
+# tile_f, tile_c, carry, hist, stream), and the text that declares it
+PARENT_OCC_DECL = "int packed, int cs, int n_bins, void* tile_f, void* tile_c,"
+PARENT_OCC_SIGNATURE = (ctypes.c_int, [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+])
 
 
-def build(tmp: str, kernel: str) -> dict:
-    """{name: ctypes library} for the committed source and each variant,
-    compiled in parallel."""
+def build(tmp: str, kernel: str, parent: str | None = None) -> dict:
+    """{name: ctypes library} for the committed source and each variant
+    (and the parent's source, from `parent`), compiled in parallel."""
     from khoice_tpu_torch.kernels import _build
 
     source, variants, symbols = KERNELS[kernel]
@@ -170,14 +220,31 @@ def build(tmp: str, kernel: str) -> dict:
                 raise SystemExit(f"variant {name}: the text it replaces is not in {src_path} once")
             src = src.replace(old, new)
         sources[name] = src
+    include = {name: CSRC for name in sources}
+    if parent:
+        parent_csrc = os.path.join(parent, "khoice_tpu_torch", "csrc")
+        with open(os.path.join(parent_csrc, source)) as fd:
+            sources["parent"] = fd.read()
+        if sources["parent"].count(PARENT_OCC_DECL) != 1:
+            raise SystemExit(f"--parent: {parent_csrc}/{source} is not the three-pass kernel "
+                             "(commit 54bd19a), whose C signature this option calls")
+        include["parent"] = parent_csrc
+        for name, subs in PARENT_VARIANTS.items():
+            src = sources["parent"]
+            for old, new in subs:
+                if src.count(old) != 1:
+                    raise SystemExit(f"variant {name}: the text it replaces is not in the parent once")
+                src = src.replace(old, new)
+            sources[name] = src
+            include[name] = parent_csrc
     procs = {}
     for name, src in sources.items():
         path = os.path.join(tmp, f"{name}.cu")
         with open(path, "w") as fd:
             fd.write(src)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", CSRC, "-shared", "-o", path[:-3] + ".so",
-             path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", include[name], "-shared", "-o",
+             path[:-3] + ".so", path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         out = proc.communicate()[0]
@@ -190,6 +257,8 @@ def build(tmp: str, kernel: str) -> dict:
         lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
         for fn in symbols:
             getattr(lib, fn).restype, getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        if name.startswith("parent"):
+            lib.occ_scan_launch.restype, lib.occ_scan_launch.argtypes = PARENT_OCC_SIGNATURE
         libs[name] = lib
     return libs
 
@@ -277,10 +346,61 @@ def scan_shapes(dev) -> dict:
     return out
 
 
+def occ_shapes(dev) -> dict:
+    """{label: (the wrapper, its arguments)} at phase 3's histogram shapes
+    (the same draws of the same generator) and over 96 related members."""
+    import chip_smoke
+    from khoice_tpu_torch.engine.occurrence import _sorted_pairs, pack_members
+    from khoice_tpu_torch.kernels import occ_scan
+
+    rng = np.random.default_rng(0)
+    chip_smoke.random_members(rng, 8, 1 << 21)
+    members96 = chip_smoke.random_members(rng, 96, 1 << 20)
+    members96[0] = np.concatenate([members96[0], np.zeros(100_000, np.uint8)])
+    for count, length in ((64, 1 << 16), (4, 1 << 21), (63, 1 << 15), (1, 1 << 24)):
+        chip_smoke.random_members(rng, count, length)
+    rng.integers(0, 256, 1 << 24)
+    members300 = chip_smoke.random_members(rng, 300, 1 << 16)
+    ancestor = chip_smoke.random_members(rng, 1, 1 << 20)[0]
+    related = []
+    for _ in range(96):
+        m = ancestor.copy()
+        pos = rng.integers(0, m.shape[0], m.shape[0] // 100)
+        m[pos] = rng.integers(0, 4, pos.shape[0], dtype=np.uint8)
+        related.append(m)
+    out = {}
+    for label, members, k in (("B 96x2^20 k=31", members96, 31), ("B 96x2^20 k=49", members96, 49),
+                              ("B related 96x2^20 k=31", related, 31)):
+        codes, gids = pack_members(members, dev)
+        out[label] = (occ_scan.occ_hist_packed, (_sorted_pairs(codes, gids, k, True)[0], 96, 5000))
+    codes, gids = pack_members(members300, dev)
+    keys, gid = _sorted_pairs(codes, gids, 31, False)
+    out["C 300x2^16 k=31"] = (occ_scan.occ_hist, (keys, gid, 300, 5000))
+    return out
+
+
+def parent_occ(lib, words, *rest):
+    """The parent's kernel B or C through its own C signature (its tile
+    summaries, carries and hist), as its wrapper called it."""
+    gid, n_bins, cs = (None, *rest) if len(rest) == 2 else rest
+    W, n = words.shape
+    dev = words.device
+    hist = torch.zeros(n_bins, dtype=torch.int64, device=dev)
+    n_tiles = (n + lib.occ_scan_tile_elems() - 1) // lib.occ_scan_tile_elems()
+    tiles = [torch.empty(n_tiles, dtype=torch.int32, device=dev) for _ in range(3)]
+    err = lib.occ_scan_launch(words.data_ptr(), None if gid is None else gid.data_ptr(), n, W,
+                              int(gid is None), cs, n_bins, *(t.data_ptr() for t in tiles),
+                              hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"parent occ_scan launch failed: CUDA error {err}")
+    return hist
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="sort")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--parent", help="a tree whose occ_scan.cu is timed as 'parent' (--kernel occ)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -295,12 +415,18 @@ def main():
     load()  # the port's library: the shapes' extraction and sort kernels
     if args.kernel == "sort":
         cases = {label: (ksort.sort_words, inputs) for label, inputs in sort_shapes(dev).items()}
-    else:
+    elif args.kernel == "scan":
         cases = scan_shapes(dev)
+    else:
+        cases = occ_shapes(dev)
+    parent = args.parent if args.kernel == "occ" else None
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(tmp, args.kernel)
+        libs = build(tmp, args.kernel, parent)
+        if parent:
+            variants = dict(variants, parent=([], True, None),
+                            **{name: ([], True, None) for name in PARENT_VARIANTS})
         try:
-            for label, (fn, inputs) in cases.items():
+            for label, (wrapper, inputs) in cases.items():
                 run = ["committed"] + [n for n, (_, _, only) in variants.items()
                                        if only is None or label in only]
                 times = {name: [] for name in run}
@@ -308,6 +434,8 @@ def main():
                 for order in (run, run[::-1]):
                     for name in order:
                         _build.load = lambda name=name: libs[name]
+                        fn = (lambda *a, lib=libs[name]: parent_occ(lib, *a)) \
+                            if name.startswith("parent") else wrapper
                         got = fn(*inputs)
                         got = got if isinstance(got, tuple) else (got,)
                         torch.cuda.synchronize()
@@ -321,13 +449,13 @@ def main():
                 _build.load = lambda: libs["committed"]
                 head = label
                 if args.kernel == "sort":
-                    fn(*inputs)
+                    wrapper(*inputs)
                     head = f"{label} ({len(ksort.last_plan[0])} passes)"
                 print(f"{head}: " + ", ".join(
                     f"{name} {np.mean(t):.3f} ms ({t[0]:.3f} / {t[1]:.3f})"
                     for name, t in times.items()), flush=True)
                 if args.kernel == "sort":
-                    split = split_ms(fn, *inputs, args.reps)
+                    split = split_ms(wrapper, *inputs, args.reps)
                     print(f"  committed, ms per sort by kernel: "
                           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
                 del want
