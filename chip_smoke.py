@@ -40,15 +40,25 @@ Phases (any failure raises, so the exit code is non-zero):
      - the occurrence-histogram kernel, packed (B), on the sorted words of
        96 members x 2^20 at k = 31 and 49 (one member with a poly-A
        tract, so runs cross tiles), and unpacked (C) on 300 members x
-       2^16 at k = 31; each one's time over its bound is printed.
+       2^16 at k = 31; each one's time over its bound is printed;
+     - exp6's vote kernels: vote_mask on the merge-join of 4 related
+       datasets x 2^24 text positions (one with a poly-A tract) and 2^23
+       read positions at k = 7, 21, 33, 49 (W 1, 2, 4, 4) and on edge
+       cases (no query, no text element, runs of queries only, a run
+       over 3 tiles, queries at tile edges, the SENTINEL run; W 1 and
+       4); read_votes on 2^14 ONT-like rows of 1001 and 2^16
+       Illumina-like rows of 151 at D = 4 and 32; each one's time over
+       its bound is printed.
   4. main paths through the port's CLI entry point:
      a. on a generated 4 datasets x 8 genomes x 2 Mbp database:
         `run --exp-type 1`, then 2, 3 and 4 in one work root (exp0 runs
         once), then exp 3 and 4 again with `--force --k-values 21,31`
-        (the per-k table ops);
+        (the per-k table ops), then `run --exp-type 6` (both read
+        types);
      b. on a generated 2 datasets x 96 genomes x 1 Mbp database (groups
         over the sweep's 64-member mask): `run --exp-type 1` on the full
-        grid and `run --exp-type 2` in its own work root.
+        grid, and `run --exp-type 2` then 6 in their own work root (exp6
+        joins ~192M group-text positions with the reads per k).
      c. the streaming sweep: `run --exp-type 1 --force` on 4b's database
         with `--device-budget-gb 12` (the 386.8M-element across set
         streams, the per-k within-group sorts fit) and on 4a's with 4
@@ -69,6 +79,7 @@ Phases (any failure raises, so the exit code is non-zero):
      inputs, exactly, after its timed span: every scan call of 4a, the
      first SORT_HOLDS sorts of each 4a/4b run, in 4b every extraction
      and histogram call at the ks where a word count changes (HOLD_KS),
+     in each exp6 run every vote_mask and read_votes call at HOLD_KS,
      and in each 4c run the first STREAM_HOLDS chunk sorts, the first
      key-range group's sort and its raw scan; 4b's scan calls (388M
      elements) are timed only.  Wall, peak device memory and each
@@ -79,7 +90,8 @@ Phases (any failure raises, so the exit code is non-zero):
      for 2 groups x 3 genomes, then for a group of 70 genomes and one of
      300 (per-k, packed and unpacked) on a 2-k and a 7-k grid (each
      kernel call timed, every C call held against its plain version); the four
-     classification sweeps; and count_codes, union, intersect_sum,
+     classification sweeps; exp6's votes, unmatched and n_kmers per read
+     (D = 3, k in {7, 21, 33, 49}); and count_codes, union, intersect_sum,
      subtract and histogram at k in {11, 31, 45}.  (The CSV bytes are
      held against the JAX package and its oracle by the CPU tests.)
 The last two lines are the kernels' JSON record and
@@ -87,6 +99,7 @@ The last two lines are the kernels' JSON record and
 """
 
 import json
+import math
 import os
 import random
 import re
@@ -109,6 +122,7 @@ HOLD_KS = (12, 13, 15, 16, 28, 29, 30, 34, 43, 46)  # every change of a word cou
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
 SCAN_REPLACES = "khoice_tpu/kernels/ksweep_scan_pallas.py"
 SCAN_SOURCE = "khoice_tpu_torch/csrc/ksweep_scan.cu"
+VOTE_SOURCE = "khoice_tpu_torch/csrc/vote.cu"
 SORT_HOLDS = 3  # sorts of each 4a/4b run held against the plain sort
 STREAM_HOLDS = 2  # chunk sorts of each 4c run held against the plain sort
 SORT_RUN = "exp1 streamed on 2 x 96 x 1 Mbp"  # the run whose sort launches are reported
@@ -153,7 +167,8 @@ def build():
     name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
         m = re.search(r"entry function '.*?(occ_tiles|scan_tiles|extract_kernel"
-                      r"|(?:first|middle|last)_pass_kernel)", line)
+                      r"|(?:first|middle|last)_pass_kernel|vote_mask_tiles|read_votes_rows)",
+                      line)
         if m:
             name = m.group(1)
         elif name and "spill stores" in line:
@@ -218,8 +233,25 @@ def max_err(got, want):
     return int((got.long() - want.long()).abs().max().item())
 
 
-def compare(label, kern, plain, args, plain_reps=2, kern_reps=10):
-    """Kernel vs plain on the same inputs: exactly equal, timed in turns."""
+def device_ms(fn, kernel, reps=10):
+    """Mean device time of the CUDA kernel whose name holds `kernel` per
+    call of fn, from torch.profiler's trace of `reps` calls (the wrapper's
+    host time left out); None where the trace has no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us else None
+
+
+def compare(label, kern, plain, args, plain_reps=2, kern_reps=10, profiled=None):
+    """Kernel vs plain on the same inputs: exactly equal, timed in turns;
+    `profiled` names the CUDA kernel whose device time the profiler adds."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     err = max_err(got, want)
@@ -233,7 +265,9 @@ def compare(label, kern, plain, args, plain_reps=2, kern_reps=10):
     k2 = time_ms(kern, kern_reps)
     p2 = time_ms(plain, plain_reps)
     bound = io_bound_ms(args, got)
-    print(f"{label}: equal (max_abs_err {err}); kernel {k1:.3f} / {k2:.3f} ms, "
+    dev = device_ms(kern, profiled, kern_reps) if profiled else None
+    print(f"{label}: equal (max_abs_err {err}); kernel {k1:.3f} / {k2:.3f} ms"
+          f"{' (device time %s)' % ('%.3f ms' % dev if dev else 'not in the trace') if profiled else ''}, "
           f"plain {p1:.3f} / {p2:.3f} ms, bound {bound:.3f} ms (bytes)", flush=True)
     return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "bound_ms": bound}
@@ -466,6 +500,105 @@ def perk_kernels_vs_plain(rng, members96):
     return results
 
 
+def vote_edge(rng, W, D, runs):
+    """A sorted merge-join of synthetic runs: run i, a random key of W
+    words (ascending), holds runs[i] = (texts, queries) elements, texts
+    first with random gids < D, queries numbered in a random order; a
+    run of key None is the SENTINEL run, last."""
+    dev = torch.device("cuda")
+    keys = np.unique(rng.integers(0, 2**31, (len(runs) + 8, W), dtype=np.int64), axis=0)
+    keys = keys[:len(runs)].copy()
+    keys[[i for i, r in enumerate(runs) if r[0] is None]] = 0xFFFFFFFF
+    lens = [t + q for _, t, q in runs]
+    nq = sum(q for _, _, q in runs)
+    order, pay, qi = D + rng.permutation(nq), [], 0
+    for _key, t, q in runs:
+        pay += [np.sort(rng.integers(0, D, t)), order[qi:qi + q]]
+        qi += q
+    words = torch.from_numpy(np.repeat(keys, lens, axis=0).T.copy()).to(dev)
+    return words, torch.from_numpy(np.concatenate(pay).astype(np.int64)).to(dev), nq
+
+
+def vote_kernels_vs_plain(rng):
+    """vote_mask on exp6's merge-join of 4 related datasets x 2^24 text
+    positions (one with a poly-A tract: runs over many tiles) and 2^23
+    read positions at k = 7, 21, 33, 49 (W 1, 2, 4, 4), its edge cases,
+    and read_votes on ONT- and Illumina-like rows at D = 4 and 32."""
+    from khoice_tpu_torch.classify import annotate
+    from khoice_tpu_torch.kernels import _build
+    from khoice_tpu_torch.kernels import vote as kvote
+
+    dev = torch.device("cuda")
+    base = rng.integers(0, 4, 1 << 24, dtype=np.uint8)
+    groups = []
+    for d in range(4):
+        g = base.copy()
+        pos = rng.integers(0, 1 << 24, (1 << 16) * (d + 1))
+        g[pos] = rng.integers(0, 4, pos.shape[0], dtype=np.uint8)
+        g[rng.integers(0, 1 << 24, 64)] = 4
+        groups.append(g)
+    groups[1][: 1 << 20] = 0  # a poly-A tract
+    n_reads = (1 << 23) // 151
+    starts = rng.integers(0, (1 << 24) - 150, n_reads)
+    reads = np.stack([groups[i % 4][s:s + 150] for i, s in enumerate(starts)])
+    err = rng.random(reads.shape) < 0.01
+    reads[err] = rng.integers(0, 4, int(err.sum()), dtype=np.uint8)
+    codes, gids = annotate.pack_group_texts(groups, dev)
+    flat, _, _ = annotate.flat_reads_device(reads, dev)
+    del groups, reads
+    results, errs = {}, []
+    for k in (7, 21, 33, 49):
+        sw, sp, _ = annotate._merge_join(codes, gids, flat, k, 4)
+        nq = flat.shape[0]
+        r = compare(f"vote_mask 4 x 2^24 + {nq} queries W={sw.shape[0]} k={k} n={sw.shape[1]}",
+                    lambda: kvote.vote_mask(sw, sp, 4, nq),
+                    lambda: kvote.vote_mask_reference(sw, sp, 4, nq), (sw, sp),
+                    profiled="vote_mask_tiles")
+        errs.append(r["max_abs_err"])
+        if k == 21:
+            results["vote_mask"] = r
+        del sw, sp
+    del codes, gids, flat
+    tile = _build.load().vote_mask_tile_elems()
+    for label, runs in (
+            ("no query", [(1, 5, 0)] * 200),
+            ("no text element", [(1, 0, int(q)) for q in rng.integers(1, 30, 2000)]),
+            ("runs of queries only", [(1, 0, 7), (1, 3, 0), (1, 2, 2)] * 1000),
+            ("a run over 3 tiles", [(1, 5, 3)] * 10 + [(1, tile + 17, 2 * tile)] + [(1, 3, 4)] * 900),
+            ("queries at tile edges", [(1, tile - 1, 1), (1, 1, 1), (1, tile - 3, 2), (1, 2, 2)] * 3),
+            ("the SENTINEL run", [(1, 4, 4)] * 100 + [(None, 100, 3 * tile)])):
+        for W in (1, 4):
+            words, pay, nq = vote_edge(rng, W, 4, runs)
+            got, want = kvote.vote_mask(words, pay, 4, nq), kvote.vote_mask_reference(words, pay, 4, nq)
+            errs.append(max_err(got, want))
+            if errs[-1]:
+                raise AssertionError(f"vote_mask {label} W={W}: kernel != plain ({errs[-1]})")
+        print(f"vote_mask {label} (W 1 and 4, n={words.shape[1]}, {nq} queries, "
+              f"{int((want != 0).sum())} matched): equal", flush=True)
+    results["vote_mask"]["max_abs_err"] = max(errs)
+    errs = []
+    for label, R, L in (("ONT-like", 1 << 14, 1001), ("Illumina-like", 1 << 16, 151)):
+        for D in (4, 32):
+            n = R * L
+            qmask = torch.from_numpy(rng.integers(0, 2**D, n, dtype=np.int64)).to(dev)
+            qmask[torch.from_numpy(rng.random(n) < 0.3).to(dev)] = 0
+            valid = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
+            rows = torch.arange(R + 1, device=dev) * L
+            lcm = math.lcm(*range(1, D + 1))
+            r = compare(f"read_votes {label} {R} rows of {L} D={D}",
+                        lambda: kvote.read_votes(qmask, valid, rows, D, lcm),
+                        lambda: kvote.read_votes_reference(qmask, valid, rows, D, lcm),
+                        (qmask, valid, rows), profiled="read_votes_rows")
+            errs.append(r["max_abs_err"])
+            if (label, D) == ("ONT-like", 4):
+                results["read_votes"] = r
+    results["read_votes"]["max_abs_err"] = max(errs)
+    print("vote kernels' time over their bound: " + ", ".join(
+        f"{key} {results[key]['ms'] / results[key]['bound_ms']:.1f}x"
+        for key in ("vote_mask", "read_votes")), flush=True)
+    return results
+
+
 def kernels_vs_plain():
     phase("3 kernels vs plain")
     rng = np.random.default_rng(0)
@@ -497,6 +630,7 @@ def kernels_vs_plain():
         f"{mode} {results[mode]['ms'] / results[mode]['bound_ms']:.1f}x"
         for mode in ("occ",) + MODES), flush=True)
     results.update(perk_kernels_vs_plain(rng, members96))
+    results.update(vote_kernels_vs_plain(rng))
     return results
 
 
@@ -617,6 +751,7 @@ def kernel_specs(scan_plain):
     from khoice_tpu_torch.engine import ksweep, ksweep_classify, occurrence, ops, streaming
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
     from khoice_tpu_torch.kernels import sort as ksort
+    from khoice_tpu_torch.kernels import vote as kvote
 
     return [
         (ksweep, "scan_multi_k", "occ",
@@ -628,8 +763,11 @@ def kernel_specs(scan_plain):
         (occurrence, "extract_packed", "A packed", extract.extract_packed_reference),
         (occurrence, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (ops, "extract_canonical", "A keys", extract.extract_canonical_reference),
+        (annotate, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (occurrence, "occ_hist_packed", "B", occ_scan.occ_hist_packed_reference),
         (occurrence, "occ_hist", "C", occ_scan.occ_hist_reference),
+        (kvote, "vote_mask", "vote_mask", kvote.vote_mask_reference),
+        (kvote, "read_votes", "read_votes", kvote.read_votes_reference),
     ] + [(module, "sort_words", "sort", ksort.sort_words_reference)
          for module in (ksweep, streaming, occurrence, ops, annotate)]
 
@@ -637,8 +775,9 @@ def kernel_specs(scan_plain):
 def reset_counts():
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
     from khoice_tpu_torch.kernels import sort as ksort
+    from khoice_tpu_torch.kernels import vote as kvote
 
-    for counts in (ksweep_scan.launches, extract.launches, occ_scan.launches):
+    for counts in (ksweep_scan.launches, extract.launches, occ_scan.launches, kvote.launches):
         for key in counts:
             counts[key] = 0
     ksort.launches = 0
@@ -646,11 +785,14 @@ def reset_counts():
 
 def read_counts():
     """Launches per kernel: the scan's modes, A (extraction, both forms),
-    B (packed histogram), C (unpacked histogram) and the sort."""
+    B (packed histogram), C (unpacked histogram), the sort and the vote
+    kernels."""
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
     from khoice_tpu_torch.kernels import sort as ksort
+    from khoice_tpu_torch.kernels import vote as kvote
 
     counts = dict(ksweep_scan.launches)
+    counts.update(kvote.launches)
     counts["A"] = extract.launches["keys"] + extract.launches["packed"]
     counts["B"] = occ_scan.launches["packed"]
     counts["C"] = occ_scan.launches["unpacked"]
@@ -670,15 +812,16 @@ def count_lines(path):
 
 class Estimates:
     """Each device-memory estimate that the engine checks against its
-    budget during a run (`check_device_budget`, imported by name in three
+    budget during a run (`check_device_budget`, imported by name in four
     modules), with what the run held on the card at that check, and the
     peak of the step it starts (until the next check; the plain checks'
     memory excluded, as Held excludes it)."""
 
     def __init__(self, held):
+        from khoice_tpu_torch.classify import annotate
         from khoice_tpu_torch.engine import ksweep_classify, session, streaming
 
-        self.modules = (streaming, ksweep_classify, session)
+        self.modules = (streaming, ksweep_classify, session, annotate)
         self.held = held
         self.steps = [["before the first check", 0, 0]]  # [label, estimate, peak]
 
@@ -796,8 +939,46 @@ def hold_sorts_and(hold):
     return lambda kernel, k, nth: nth < SORT_HOLDS if kernel == "sort" else hold(kernel, k)
 
 
+def hold_votes(kernel, k, nth):
+    """exp6's runs: the first SORT_HOLDS sorts and every vote_mask and
+    read_votes call at HOLD_KS."""
+    return nth < SORT_HOLDS if kernel == "sort" else (
+        kernel in ("vote_mask", "read_votes") and k in HOLD_KS)
+
+
+def exp6_run(label, db, work, n_datasets, extra=()):
+    """`run --exp-type 6` (exp0 already in the work root): both read
+    types' trial CSVs have a line per (k, dataset) under the header, and
+    every per-k file one line per dataset.  Returns run_path's counts,
+    errors and wall and peak."""
+    from khoice_tpu_torch.pipelines.exp6 import READ_TYPE_LABEL
+
+    g = len(K_GRID)
+    c, e, _, stats = run_path(
+        label, ["run", "--exp-type", "6", "--database-root", db, "--work-root", work,
+                "--kmers-per-dataset", "2000000", *extra],
+        hold_votes, ["A", "vote_mask", "read_votes"],
+        {os.path.join(work, f"trial_1_{lab}_acc.csv"): 1 + g * n_datasets
+         for lab in READ_TYPE_LABEL.values()})
+    n_files = 0
+    for rt in READ_TYPE_LABEL:
+        acc = os.path.join(work, "accuracies_type_6", rt)
+        for k in K_GRID:
+            for rel in (f"confusion_matrix/k_{k}_confusion_matrix.txt",
+                        f"confusion_matrix/k_{k}_confusion_matrix_with_unidentified.txt",
+                        f"values/k_{k}_accuracy_values.csv"):
+                with open(os.path.join(acc, rel)) as fd:
+                    if len(fd.read().strip().splitlines()) != n_datasets:
+                        raise AssertionError(f"{label}: {rt}/{rel} has no line per dataset")
+                n_files += 1
+    print(f"{label}: {n_files} per-k files of a line per dataset; held against their plain "
+          f"versions: every vote_mask and read_votes call at k in {HOLD_KS}, the first "
+          f"{SORT_HOLDS} sorts of the run, all equal", flush=True)
+    return c, e, stats
+
+
 def main_paths(tmp):
-    phase("4a main paths on 4 x 8 x 2 Mbp: run --exp-type 1, 2, 3, 4; 3 and 4 per-k")
+    phase("4a main paths on 4 x 8 x 2 Mbp: run --exp-type 1, 2, 3, 4; 3 and 4 per-k; 6")
     db = gen_db(tmp, "db", 4, 8, 2.0)
     g = len(K_GRID)
     every = hold_sorts_and(lambda kernel, k: True)
@@ -842,12 +1023,15 @@ def main_paths(tmp):
         os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * 2})
     sorts["exp4 per-k on 4 x 8"] = c["sort"]
     merge(e, errors)
+    c, e, _ = exp6_run("exp6, 30 ks", db, work, 4)
+    sorts["exp6 on 4 x 8"] = c["sort"]
+    merge(e, errors)
     return launches, errors, sorts, db, work1
 
 
 def large_group_paths(tmp):
     phase("4b main path on 2 x 96 x 1 Mbp (groups over the 64-member mask): "
-          "run --exp-type 1, 2")
+          "run --exp-type 1, 2, 6")
     db = gen_db(tmp, "db96", 2, 96, 1.0)
     g = len(K_GRID)
     at_hold_ks = hold_sorts_and(lambda kernel, k: k in HOLD_KS)
@@ -873,6 +1057,11 @@ def large_group_paths(tmp):
             os.path.join(work2, "across_dataset_analysis_type_2/across_dataset_analysis.csv"): 1 + 2 * g},
         scan_plain=False)
     sorts["exp2 on 2 x 96"] = c["sort"]
+    merge(e, errors)
+    # the group texts, ~192M positions per k, against the pivots' reads
+    c, e, _ = exp6_run("exp6 on 2 x 96 x 1 Mbp, 30 ks", db, work2, 2)
+    launches["vote_mask"], launches["read_votes"] = c["vote_mask"], c["read_votes"]
+    sorts["exp6 on 2 x 96"] = c["sort"]
     merge(e, errors)
     held = {kernel: per["exp1"].get(kernel, {}).get("held", 0) + per["exp2"].get(kernel, {}).get("held", 0)
             for kernel in ("A packed", "A keys", "B", "sort")}
@@ -1085,7 +1274,8 @@ def small_world_exp1(tmp):
 
 
 def small_world_classify():
-    phase("5b small world: the four classification sweeps vs a dict-based counter")
+    phase("5b small world: the four classification sweeps and exp6's votes vs a dict-based "
+          "counter")
     from khoice_tpu_torch.engine import ksweep_classify as kc
     from khoice_tpu_torch.io.packing import encode_records as enc
 
@@ -1160,6 +1350,50 @@ def small_world_classify():
         raise AssertionError("buckets: no pivot count reached the cap")
     print(f"pivot_rest, multi_pivot, containment and buckets (cap {cap}) equal the "
           f"dict-based counter's (ks {ks})")
+    small_world_votes(rng, group_recs, kset)
+
+
+def small_world_votes(rng, group_recs, kset):
+    """exp6's votes (classify/annotate.py::read_votes_bulk_multi on the
+    card) for reads drawn from D = 3 groups, random reads and reads with
+    an N, against a dict-based voter: votes, unmatched and n_kmers per
+    read."""
+    from khoice_tpu_torch.classify import annotate
+    from khoice_tpu_torch.io.packing import encode_records as enc
+    from khoice_tpu_torch.pipelines.exp6 import reads_matrix
+
+    def dna(n):
+        return "".join("ACGT"[rng.randrange(4)] for _ in range(n))
+
+    reads = [rec[i:i + rng.randrange(60, 200)] for recs in group_recs for rec in recs[:2]
+             for i in range(0, len(rec) - 200, 157)]
+    reads += [dna(150) for _ in range(5)] + [reads[0][:70] + "N" + reads[0][71:]]
+    D, lcm = 3, 6
+    group = annotate.pack_group_texts([enc(g) for g in group_recs], "cuda")
+    big, spans = annotate.concat_flat_reads(
+        [annotate.flat_reads_device(reads_matrix(reads), "cuda")])
+    for k in (7, 21, 33, 49):
+        votes, unmatched, n_kmers = annotate.read_votes_bulk_multi(group, big, spans, k, D)[0]
+        sets = [kset(g, k) for g in group_recs]
+        for r, read in enumerate(reads):
+            v, u, nk = [0] * D, 0, 0
+            for i in range(len(read) - k + 1):
+                x = read[i:i + k]
+                if "N" in x:
+                    continue
+                x = min(x, x.translate(_COMP)[::-1])
+                hits = [d for d in range(D) if x in sets[d]]
+                for d in hits:
+                    v[d] += lcm // len(hits)
+                u += not hits
+                nk += 1
+            if votes[r].tolist() != v or unmatched[r] != u or n_kmers[r] != nk:
+                raise AssertionError(f"exp6 votes k={k} read {r}: {votes[r].tolist()}, "
+                                     f"{unmatched[r]}, {n_kmers[r]} != {v}, {u}, {nk}")
+        if not (votes.any() and unmatched.any()):
+            raise AssertionError(f"exp6 votes k={k}: nothing matched or nothing unmatched")
+    print(f"exp6's votes, unmatched and n_kmers equal the dict-based voter's ({len(reads)} "
+          f"reads, D = {D}, ks 7, 21, 33, 49)")
 
 
 def small_world_tables():
@@ -1278,6 +1512,10 @@ def main():
                       "khoice_tpu/kernels/occ_scan_pallas.py:205", launches["B"], results["B"]),
         kernel_record("occ_scan.unpacked", "khoice_tpu_torch/csrc/occ_scan.cu",
                       "khoice_tpu/kernels/occ_scan_pallas.py:238", launches["C"], results["C"]),
+        kernel_record("vote_mask", VOTE_SOURCE, "khoice_tpu/classify/annotate.py:250",
+                      launches["vote_mask"], results["vote_mask"]),
+        kernel_record("read_votes", VOTE_SOURCE, "khoice_tpu/classify/annotate.py:497",
+                      launches["read_votes"], results["read_votes"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

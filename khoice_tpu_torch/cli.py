@@ -1,10 +1,10 @@
 """Command-line interface: `python -m khoice_tpu_torch run --exp-type N ...`.
 
 The flags are khoice_tpu's (`python -m khoice_tpu run ...`) plus
-`--device` (default `cuda`).  The port runs exp0 (host only) and exp1-4
-on one device, on groups of any size and any k grid (groups of more than
-64 genomes and small grids take the per-k fused path); exp5-8 and the
-sharded sweep are served by `python -m khoice_tpu` until they are
+`--device` (default `cuda`).  The port runs exp0 (host only), exp1-4 and
+exp6 on one device, on groups of any size and any k grid (groups of more
+than 64 genomes and small grids take the per-k fused path); exp5, 7, 8
+and the sharded sweep are served by `python -m khoice_tpu` until they are
 ported.  Inputs follow the
 reference database layout (`database_root/dataset_{i}/*.fna.gz`) and
 exp0's trial_{t}/ layout; outputs land under --work-root with the
@@ -27,7 +27,7 @@ from .utils.logging import get_logger
 
 log = get_logger("khoice.cli")
 
-PORTED_EXP_TYPES = (0, 1, 2, 3, 4)
+PORTED_EXP_TYPES = (0, 1, 2, 3, 4, 6)
 
 
 def _device(name: str) -> torch.device:
@@ -180,6 +180,9 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
         nonpivot_genomes = {
             num: [db[num][n] for n in exp0["nonpivots"][num]] for num in db
         }
+        rest = dict(nonpivot_genomes)  # exp4 and exp6's rest of set
+        if not cfg.out_pivot:  # in-pivot adds the pivot to its own group
+            rest = {num: rest[num] + [pivots[num]] for num in rest}
         if et == 2:
             from .pipelines.exp2 import run_exp2
 
@@ -201,12 +204,9 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
                                     device, union_cs=cfg.union_cs,
                                     device_budget_bytes=budget),
             )])
-        else:
+        elif et == 4:
             from .pipelines.exp4 import run_exp4
 
-            rest = dict(nonpivot_genomes)
-            if not cfg.out_pivot:  # in-pivot adds the pivot to its own group
-                rest = {num: rest[num] + [pivots[num]] for num in rest}
             driver.run([Stage(
                 name="exp4",
                 outputs=[os.path.join(cfg.work_root, "accuracies_type_4/accuracy_values.csv")],
@@ -214,6 +214,21 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
                                     count_cs=cfg.count_cs, union_cs=cfg.union_cs,
                                     device_budget_bytes=budget),
             )])
+        else:
+            from .pipelines.exp6 import READ_TYPE_LABEL, run_exp6
+
+            stages = []
+            for rt in ("illumina", "ont"):
+                reads_rt = {num: exp0["reads"][(num, rt)] for num in db}
+                stages.append(Stage(
+                    name=f"exp6_{rt}",
+                    outputs=[os.path.join(cfg.work_root,
+                                          f"trial_{cfg.curr_trial}_{READ_TYPE_LABEL[rt]}_acc.csv")],
+                    fn=(lambda reads_rt=reads_rt, rt=rt: run_exp6(
+                        reads_rt, rest, cfg.k_values, cfg.work_root, device, read_type=rt,
+                        trial=cfg.curr_trial, seed=cfg.seed, device_budget_bytes=budget)),
+                ))
+            driver.run(stages)
     return 0
 
 
@@ -238,11 +253,12 @@ def main(argv=None) -> int:
     run_p.add_argument("--mesh-shards", type=int, default=None,
                        help="devices along the k-mer key-range mesh axis (not ported: 1 only)")
     run_p.add_argument("--device-budget-gb", type=float, default=None,
-                       help="device memory budget of the exp1-4 sweeps and per-k "
-                            "sorts (default: 85%% of the device; an exp1 group beyond "
-                            "it streams in bounded memory, other sweeps raise)")
+                       help="device memory budget of the exp1-4 sweeps, the per-k "
+                            "sorts and exp6's votes (default: 85%% of the device; an "
+                            "exp1 group beyond it streams in bounded memory, the other "
+                            "steps raise)")
     run_p.add_argument("--trials", type=int, default=None,
-                       help="fan exp0/2/3/4 over trials 1..N (reference NUM_TRIALS; "
+                       help="fan exp0/2/3/4/6 over trials 1..N (reference NUM_TRIALS; "
                             "ignored by exp1)")
     run_p.add_argument("--force", action="store_true", help="ignore satisfied outputs")
     run_p.add_argument("--device", default="cuda",

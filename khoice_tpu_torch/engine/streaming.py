@@ -210,6 +210,26 @@ def annotation_bytes(n_keys: int, n_words: int) -> int:
                (16 * n_words + 66) * n_keys + _ALLOCATOR_SLACK)
 
 
+def vote_bytes(n_text: int, n_query: int, n_words: int) -> int:
+    """Estimated device bytes of one k's merge-join vote
+    (classify/annotate.py::read_votes_bulk_multi) over n = n_text +
+    n_query elements of W = `n_words` key words, beside the resident group
+    texts and reads.  In turn, with the concatenated words and payload
+    (8 (W + 1) n) alive until the sort:
+      a side's extraction: its keys and validity, and the payload step's
+      negated validity (the texts: 8 W + 2 per element)     8 (W + 1) n + (8 W + 2) n_text
+      the sort, its input and output included, beside the
+      queries' validity                                     _sort_bytes(n, W, True) + n_query
+      the masks: the sorted words and payload, the masks, the
+      tile statuses (<= n / 256) and the validity            8 (W + 1) n + n / 256 + 9 n_query
+      the votes: the masks, the validity, the row starts and
+      the per-read outputs (R <= n_query rows, D <= 32)      9 n_query + 8 (R + 1) + 8 (D + 2) R
+    The sort's line bounds the first three (16 (W + 1) + 4 (W + 2) + 1 >
+    8 (W + 1) + 8 W + 2); the last is at most 8 + 289 n_query."""
+    n = n_text + n_query
+    return max(_sort_bytes(n, n_words, True) + n_query, 8 + 289 * n_query) + _ALLOCATOR_SLACK
+
+
 def resident_bytes(device) -> int:
     """Device bytes the run holds now (tensors allocated on a CUDA
     device); 0 for the CPU."""

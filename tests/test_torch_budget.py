@@ -326,3 +326,45 @@ def test_table_merge_bytes_bound_the_steps_peak(monkeypatch, op, k, overlap):
         got = fn()
     assert torch.equal(got.keys, want.keys) and torch.equal(got.counts, want.counts)
     assert mode.peak <= st.table_merge_bytes(len(a) + len(b), a.n_words) - st._ALLOCATOR_SLACK
+
+
+@pytest.mark.parametrize("k,n_reads", [(11, 400), (21, 40), (49, 40)])
+def test_vote_bytes_bound_the_steps_peak(monkeypatch, k, n_reads):
+    """One k's merge-join vote beside the resident group texts and reads:
+    the concatenation, both extractions, the sort's input and output
+    (its own allocations are _sort_bytes', checked above), the masks and
+    the per-read outputs stay within vote_bytes, whether the reads are
+    few beside the texts or many.  The kernels run uncounted and hand
+    over their outputs (on the card they allocate nothing else but the
+    masks' tile statuses, which the estimate counts)."""
+    from khoice_tpu_torch.classify import annotate as ann
+    from khoice_tpu_torch.kernels import vote as kvote
+
+    rng = np.random.default_rng(k + n_reads)
+    group = ann.pack_group_texts(_members(rng, 4, 5000, False), "cpu")
+    reads = rng.integers(0, 4, (n_reads, 150)).astype(np.uint8)
+    flat, spans = ann.concat_flat_reads([ann.flat_reads_device(reads, "cpu")])
+    want = ann.read_votes_bulk_multi(group, flat, spans, k, 4)
+    mode = _LiveOps(held=(*group, flat))
+
+    def handed_over(fn):
+        def call(*args):
+            mode.paused = True
+            try:
+                out = fn(*args)
+            finally:
+                mode.paused = False
+            return tuple(t.clone() for t in out) if isinstance(out, tuple) else out.clone()
+        return call
+
+    for module, name in ((ann, "extract_canonical"), (ann, "sort_words"),
+                         (kvote, "vote_mask"), (kvote, "read_votes")):
+        monkeypatch.setattr(module, name, handed_over(getattr(module, name)))
+    with mode:
+        got = ann.read_votes_bulk_multi(group, flat, spans, k, 4, 1 << 40)
+    for g, w in zip(got[0], want[0]):
+        assert np.array_equal(g, w)
+    n_text, n_query = group[0].shape[0], flat.shape[0]
+    assert mode.peak >= 8 * st.key_words(k) * (n_text + n_query)
+    est = st.vote_bytes(n_text, n_query, st.key_words(k)) - st._ALLOCATOR_SLACK
+    assert mode.peak <= est

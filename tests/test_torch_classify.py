@@ -249,7 +249,7 @@ def database(rng, tmp_path):
     return str(root)
 
 
-@pytest.mark.parametrize("exp_type", [2, 3, 4])
+@pytest.mark.parametrize("exp_type", [2, 3, 4, 6])
 def test_cli_outputs_equal_jax_cli(database, tmp_path, exp_type):
     args = ["run", "--exp-type", str(exp_type), "--database-root", database,
             "--k-values", "7,8,12,21", "--kmers-per-dataset", "3000"]
@@ -270,7 +270,7 @@ def test_cli_device_budget_reaches_classification_sweeps(database, tmp_path):
     common = ["--database-root", database, "--work-root", str(tmp_path), "--device", "cpu",
               "--k-values", "7,8,12", "--kmers-per-dataset", "3000"]
     assert tcli.main(["run", "--exp-type", "0", *common]) == 0
-    for exp_type in (2, 3, 4):
+    for exp_type in (2, 3, 4, 6):
         with pytest.raises(DeviceBudgetExceeded):
             tcli.main(["run", "--exp-type", str(exp_type), *common,
                        "--device-budget-gb", "1e-6"])

@@ -64,8 +64,8 @@ def test_cli_exp1_on_cpu_and_unported_exp_types(rng, tmp_path):
     assert len(step5.strip().split("\n")) == 1 + 2 * 4
     assert len(step9.strip().split("\n")) == 1 + 4
 
-    proc = _cli("--exp-type", "6", "--device", "cpu", "--database-root", str(db),
-                "--work-root", str(tmp_path / "w6"))
+    proc = _cli("--exp-type", "5", "--device", "cpu", "--database-root", str(db),
+                "--work-root", str(tmp_path / "w5"))
     assert proc.returncode != 0
     assert "python -m khoice_tpu" in proc.stderr and "not ported" in proc.stderr
 
@@ -87,8 +87,8 @@ def test_cli_without_cuda_fails_loudly(rng, tmp_path):
 
 
 def test_port_never_imports_jax(rng, tmp_path):
-    """Walking every module of the port and running exp 0/1/2/3/4 on the
-    CPU, and exp 1/2 again on a 2-k grid (the per-k path), imports
+    """Walking every module of the port and running exp 0/1/2/3/4/6 on
+    the CPU, and exp 1/2 again on a 2-k grid (the per-k path), imports
     neither jax nor anything of the JAX package."""
     db = tmp_path / "db"
     _write_db(str(db), rng, glen=3000)  # long enough for exp0's ONT reads
@@ -98,7 +98,7 @@ def test_port_never_imports_jax(rng, tmp_path):
         "for m in pkgutil.walk_packages(khoice_tpu_torch.__path__, 'khoice_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from khoice_tpu_torch.cli import main\n"
-        "for t in ('0', '1', '2', '3', '4'):\n"
+        "for t in ('0', '1', '2', '3', '4', '6'):\n"
         f"    assert main(['run', '--exp-type', t, '--device', 'cpu', '--database-root', {str(db)!r},\n"
         f"                 '--work-root', {str(tmp_path / 'work')!r}, '--k-values', '7,9,12',\n"
         "                 '--kmers-per-dataset', '1000']) == 0\n"
@@ -122,6 +122,7 @@ def test_port_never_imports_jax(rng, tmp_path):
     assert (work / "across_dataset_analysis_type_2/across_dataset_analysis.csv").exists()
     assert (work / "final_analysis_type3/final_analysis_type3.csv").exists()
     assert (work / "accuracies_type_4/accuracy_values.csv").exists()
+    assert (work / "trial_1_short_acc.csv").exists() and (work / "trial_1_long_acc.csv").exists()
     perk = tmp_path / "perk"
     assert (perk / "step_9/across_datasets_analysis.csv").exists()
     assert (perk / "within_dataset_analysis_type_2/within_dataset_analysis.csv").exists()

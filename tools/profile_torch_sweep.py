@@ -13,7 +13,7 @@
    planned passes and its time by kernel (first pass, middle passes,
    last pass) under torch.profiler.
 2. With --db: each of --exp-types through the CLI entry point under
-   torch.profiler (exp 2/3/4 share one work root, and exp0 runs there
+   torch.profiler (exp 2/3/4/6 share one work root, and exp0 runs there
    first, unprofiled); prints the wall time, the top device ops and the
    device-busy share: the union of the trace's kernel, memcpy and memset
    intervals over the wall (overlaps counted once).  --out also keeps
@@ -181,7 +181,7 @@ def main():
             common = ["--database-root", args.db, "--work-root", work,
                       "--kmers-per-dataset", args.kmers_per_dataset]
             exp_types = [int(t) for t in args.exp_types.split(",")]
-            if any(t in (2, 3, 4) for t in exp_types):
+            if any(t in (2, 3, 4, 6) for t in exp_types):
                 t0 = time.perf_counter()
                 from khoice_tpu_torch import cli
 
