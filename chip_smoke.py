@@ -66,6 +66,17 @@ Phases (any failure raises, so the exit code is non-zero):
         the CSVs must equal 4a's and 4b's in-core bytes, the peak device
         memory must stay within the budget, and the stream's log lines
         (chunks, key-range groups, passes, retries) are printed.
+     d. exp1's table ops and the MEM experiments: `run_exp1(...,
+        fused=False)` on 4a's database over the 30-point grid (a count of
+        every genome at every k, the within- and across-group unions:
+        960 counts and 150 unions), its CSVs equal to 4a's fused run's,
+        every kernel-A call and every sort held against its plain version
+        and each checked step within its estimate; then `run --exp-type
+        5`, 7 and 8 (with exp0) on a generated 2 x 4 x 0.05 Mbp database
+        (host suffix arrays: exp8 takes MEM_READS reads per read type and
+        dataset), which must launch no kernel, load the native MS engine
+        and write every matrix and trial CSV with a finite row per
+        dataset.
      Every launch counter is set to 0 just before each run and read just
      after; the kernels a run uses must have launched (the sort on every
      run), and its CSVs must have the expected lines.  In each 4a/4b run
@@ -860,22 +871,24 @@ class Estimates:
 
 def run_path(label, argv, hold, uses, expect_lines, scan_plain=True, per_call=None,
              incore=True):
-    """Drive one main path through the CLI with every count set to 0 just
-    before it, its kernel calls timed and held against their plain
-    versions; return the counts read just after, each kernel's largest
-    difference, the per-kernel call summary and the run's wall and peak
-    (checks excluded).  Every run sorts with the radix sort.  The calls
-    of the kernels in per_call are printed one by one (by default the
-    scan's, when they are held).  An in-core run's peak must stay within
-    the largest estimate the engine checked (engine/streaming.py)."""
+    """Drive one main path through the CLI (argv), or through the entry
+    point that `argv` is when it is a callable returning 0, with every
+    count set to 0 just before it, its kernel calls timed and held against
+    their plain versions; return the counts read just after, each kernel's
+    largest difference, the per-kernel call summary and the run's wall and
+    peak (checks excluded).  Every run sorts with the radix sort.  The
+    calls of the kernels in per_call are printed one by one (by default
+    the scan's, when they are held).  An in-core run's peak must stay
+    within the largest estimate the engine checked (engine/streaming.py)."""
     from khoice_tpu_torch import cli
 
+    run = argv if callable(argv) else (lambda: cli.main(argv))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with Held(kernel_specs(scan_plain), hold) as held, Estimates(held) as est:
         reset_counts()
         t0 = time.perf_counter()
-        rc = cli.main(argv)
+        rc = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
@@ -1160,6 +1173,104 @@ def streaming_paths(tmp, runs):
         for logger in loggers:
             logger.removeHandler(keep)
     return errors, sorts
+
+
+def table_op_path(tmp, db, work1):
+    """4d-i: exp1's table ops (`run_exp1(..., fused=False)`) on 4a's
+    database over the 30-point grid: a canonical count of every genome at
+    every k and the within- and across-group unions.  Every sort and every
+    kernel-A call is held against its plain version; the CSVs must equal
+    4a's fused run's (work1).  Returns the counts and each kernel's
+    largest difference."""
+    phase("4d-i exp1's table ops on 4 x 8 x 2 Mbp: run_exp1(..., fused=False), 30 ks")
+    from khoice_tpu_torch.pipelines.exp0 import load_database_dir
+    from khoice_tpu_torch.pipelines.exp1 import run_exp1
+
+    g = len(K_GRID)
+    work = os.path.join(tmp, "work_ops")
+
+    def drive():
+        loaded = load_database_dir(db)
+        groups = {num: [loaded[num][name] for name in sorted(loaded[num])] for num in loaded}
+        run_exp1(groups, K_GRID, work, "cuda", fused=False)
+        return 0
+
+    csvs = ("step_5/within_datasets_analysis.csv", "step_9/across_datasets_analysis.csv")
+    c, e, per, stats = run_path(
+        "exp1 table ops (fused=False), 30 ks", drive, lambda kernel, k, nth: True, ["A"],
+        {os.path.join(work, csvs[0]): 1 + 4 * g, os.path.join(work, csvs[1]): 1 + g},
+        per_call=())
+    counts, unions = 4 * 8 * g, 5 * g
+    if c["A"] != counts or c["sort"] != counts + unions:
+        raise AssertionError(f"table ops: {c['A']} A and {c['sort']} sort launches, expected "
+                             f"{counts} and {counts + unions}")
+    held = {kernel: per[kernel]["held"] for kernel in ("A keys", "sort")}
+    if held != {"A keys": counts, "sort": counts + unions}:
+        raise AssertionError(f"table ops: held {held}")
+    for rel in csvs:
+        with open(os.path.join(work, rel), "rb") as fd, open(os.path.join(work1, rel), "rb") as ref:
+            if fd.read() != ref.read():
+                raise AssertionError(f"table ops: {rel} differs from the fused run's")
+    print(f"exp1 table ops: step_5 and step_9 bytes equal the fused run's; {counts} counts "
+          f"and {unions} unions, every A call and every sort held against its plain "
+          f"version ({held}), all equal; wall {stats['wall']:.2f} s, peak device memory "
+          f"{stats['peak'] / 2**30:.2f} GiB, launches A {c['A']}, sort {c['sort']} "
+          f"({smi_line()})", flush=True)
+    return c, e
+
+
+MEM_READS = 100  # exp8's reads per read type and dataset (NUM_READS_PER_DATASET)
+
+
+def mem_paths(tmp):
+    """4d-ii: `run --exp-type 5`, 7 and 8 through the CLI on a reduced
+    database.  They run on the host, as the JAX package's do: no kernel
+    may launch, and the native MS engine must have loaded.  Every output
+    matrix has a line per dataset of finite values."""
+    phase("4d-ii the MEM experiments on 2 x 4 x 0.05 Mbp: run --exp-type 5, 7, 8")
+    from khoice_tpu_torch import cli
+    from khoice_tpu_torch.config import default_t_values
+    from khoice_tpu_torch.mems import ms
+
+    db = gen_db(tmp, "db_mem", 2, 4, 0.05)
+    work = os.path.join(tmp, "work_mem")
+    config = os.path.join(tmp, "mem.yaml")
+    with open(config, "w") as fd:
+        fd.write(f"NUM_READS_PER_DATASET: {MEM_READS}\n")
+    print(f"cuts: 2 datasets x 4 genomes x 0.05 Mbp (a host suffix array per pass), exp0 "
+          f"with --kmers-per-dataset 20000 (exp7's reads), exp8 with {MEM_READS} reads per "
+          "read type and dataset; the threshold grid and both mem types and read types in full")
+    common = ["--database-root", db, "--work-root", work, "--kmers-per-dataset", "20000",
+              "--config", config]
+    mts, rts = ("mems", "half_mems"), ("illumina", "ont")
+    outputs = {
+        5: [f"output_type_5/{mt}/confusion_matrix.csv" for mt in mts],
+        7: [f"final_output_type_7/trial_1_{mt}_{rt}.csv" for mt in mts for rt in rts]
+        + [f"output_type_7/{mt}/{rt}/confusion_matrix.csv" for mt in mts for rt in rts],
+        8: [f"output_type_8/{mt}/t_{t}/{rt}/confusion_matrix.csv"
+            for mt in mts for t in default_t_values() for rt in rts],
+    }
+    walls = {}
+    for et in (0, 5, 7, 8):
+        reset_counts()
+        t0 = time.perf_counter()
+        if cli.main(["run", "--exp-type", str(et), *common]) != 0:
+            raise AssertionError(f"exp{et} failed")
+        walls[f"exp{et}"] = time.perf_counter() - t0
+        launched = {k: v for k, v in read_counts().items() if v}
+        if launched:
+            raise AssertionError(f"exp{et} launched kernels on the host path: {launched}")
+        for rel in outputs.get(et, []):
+            with open(os.path.join(work, rel)) as fd:
+                rows = [line.split(",") for line in fd.read().strip().splitlines()]
+            if len(rows) != 2 or not all(np.isfinite(float(x)) for row in rows for x in row):
+                raise AssertionError(f"exp{et}: {rel} is not 2 rows of finite values: {rows}")
+    if ms._LIB is None:
+        raise AssertionError("the native MS engine did not load")
+    print(f"MEM experiments: {sum(len(v) for v in outputs.values())} matrices and trial CSVs "
+          f"of 2 finite rows (exp5 {len(outputs[5])}, exp7 {len(outputs[7])}, exp8 "
+          f"{len(outputs[8])}), no kernel launched, native MS engine {ms._LIB._name}; walls "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()) + f" ({smi_line()})", flush=True)
 
 
 _COMP = str.maketrans("ACGT", "TGCA")
@@ -1477,6 +1588,12 @@ def main():
         walls["streaming 4c"] = time.perf_counter() - t0
         sorts.update(stream_sorts)
         merge(stream_errors, errors)
+        t0 = time.perf_counter()
+        ops_counts, ops_errors = table_op_path(tmp, db, work1)
+        sorts["exp1 table ops on 4 x 8"] = ops_counts["sort"]
+        merge(ops_errors, errors)
+        mem_paths(tmp)
+        walls["table ops and MEM 4d"] = time.perf_counter() - t0
         # the sort's record reports one run, counted from 0 just before it
         launches["sort"] = sorts[SORT_RUN]
         print(f"radix_sort launches per run (each counted from 0): {sorts}; the kernels "

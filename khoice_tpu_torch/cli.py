@@ -1,15 +1,16 @@
 """Command-line interface: `python -m khoice_tpu_torch run --exp-type N ...`.
 
 The flags are khoice_tpu's (`python -m khoice_tpu run ...`) plus
-`--device` (default `cuda`).  The port runs exp0 (host only), exp1-4 and
-exp6 on one device, on groups of any size and any k grid (groups of more
-than 64 genomes and small grids take the per-k fused path); exp5, 7, 8
-and the sharded sweep are served by `python -m khoice_tpu` until they are
-ported.  Inputs follow the
-reference database layout (`database_root/dataset_{i}/*.fna.gz`) and
-exp0's trial_{t}/ layout; outputs land under --work-root with the
-reference's directory names, and a stage whose outputs exist is skipped
-(runtime/driver.py) unless --force.
+`--device` (default `cuda`).  The port runs every experiment of the JAX
+package: exp1-4 and exp6 on one device, on groups of any size and any k
+grid (groups of more than 64 genomes and small grids take the per-k
+fused path); exp0 and the MEM experiments exp5, 7 and 8 on the host, as
+the JAX package does, so they take no device.  The sharded sweep
+(`--mesh-shards` > 1) is served by `python -m khoice_tpu` until it is
+ported.  Inputs follow the reference database layout
+(`database_root/dataset_{i}/*.fna.gz`) and exp0's trial_{t}/ layout;
+outputs land under --work-root with the reference's directory names, and
+a stage whose outputs exist is skipped (runtime/driver.py) unless --force.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from .utils.logging import get_logger
 
 log = get_logger("khoice.cli")
 
-PORTED_EXP_TYPES = (0, 1, 2, 3, 4, 6)
+EXP_TYPES = (0, 1, 2, 3, 4, 5, 6, 7, 8)
+HOST_EXP_TYPES = (0, 5, 7, 8)  # they run nothing on a device
 
 
 def _device(name: str) -> torch.device:
@@ -92,11 +94,8 @@ def cmd_run(args) -> int:
         cfg.num_trials = args.trials
     if args.device_budget_gb:
         cfg.device_budget_gb = args.device_budget_gb
-    if cfg.exp_type not in PORTED_EXP_TYPES:
-        raise SystemExit(
-            f"exp-type {cfg.exp_type} is not ported to khoice_tpu_torch yet; "
-            "it is served by `python -m khoice_tpu run` until ported"
-        )
+    if cfg.exp_type not in EXP_TYPES:
+        raise SystemExit(f"unknown exp type {cfg.exp_type}")
     if args.mesh_shards and args.mesh_shards > 1:
         raise SystemExit(
             "--mesh-shards > 1 (the sharded sweep) is not ported to "
@@ -108,8 +107,7 @@ def cmd_run(args) -> int:
             if value:
                 log.warning("%s=%d ignored for exp_type=1 (it reads every dataset "
                             "and every k-mer)", flag, value)
-    # exp0 is host only; every other ported experiment runs on the device
-    device = _device(args.device) if cfg.exp_type != 0 else None
+    device = _device(args.device) if cfg.exp_type not in HOST_EXP_TYPES else None
 
     from .pipelines.exp0 import load_database_dir
 
@@ -118,8 +116,9 @@ def cmd_run(args) -> int:
         raise SystemExit(f"no dataset_N directories under {cfg.database_root}")
 
     # Multi-trial fan-out (reference NUM_TRIALS, prepare_data.smk:42-117):
-    # exp0's outputs are trial-keyed already; exp2/3/4 write per-trial
-    # subroots so trials don't clobber each other.
+    # exp0's and exp6's outputs are trial-keyed already; the other
+    # exp0-dependent experiments write per-trial subroots so trials don't
+    # clobber each other.
     if args.trials and args.trials > 1:
         if cfg.exp_type == 1:
             log.warning(
@@ -133,7 +132,7 @@ def cmd_run(args) -> int:
             for t in range(1, args.trials + 1):
                 cfg.curr_trial = t
                 cfg.work_root = (
-                    base_root if cfg.exp_type == 0
+                    base_root if cfg.exp_type in (0, 6)
                     else os.path.join(base_root, f"trial_{t}_results")
                 )
                 log.info("=== trial %d/%d ===", t, args.trials)
@@ -171,7 +170,8 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
             ],
             fn=lambda: run_exp1(
                 groups, cfg.k_values, cfg.work_root, device,
-                union_cs=cfg.union_cs, hist_cx=cfg.hist_cx, device_budget_bytes=budget,
+                union_cs=cfg.union_cs, count_cs=cfg.count_cs, hist_cx=cfg.hist_cx,
+                device_budget_bytes=budget,
             ),
         )])
     else:
@@ -214,7 +214,7 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
                                     count_cs=cfg.count_cs, union_cs=cfg.union_cs,
                                     device_budget_bytes=budget),
             )])
-        else:
+        elif et == 6:
             from .pipelines.exp6 import READ_TYPE_LABEL, run_exp6
 
             stages = []
@@ -229,6 +229,63 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
                         trial=cfg.curr_trial, seed=cfg.seed, device_budget_bytes=budget)),
                 ))
             driver.run(stages)
+        elif et == 5:
+            from .pipelines.exp5 import run_exp5
+
+            driver.run([Stage(
+                name="exp5",
+                outputs=[os.path.join(cfg.work_root, "output_type_5/mems/confusion_matrix.csv")],
+                fn=lambda: run_exp5(pivots, nonpivot_genomes, cfg.work_root,
+                                    threshold=cfg.threshold, seed=cfg.seed),
+            )])
+        elif et == 7:
+            from .pipelines.exp7 import run_exp7
+
+            # both read types of exp0, four trial CSVs (exp_type_7.smk:36-47,284-292)
+            reads7 = {
+                rt: {num: exp0["reads"][(num, rt)] for num in db}
+                for rt in ("illumina", "ont")
+            }
+            outputs7 = [
+                os.path.join(cfg.work_root,
+                             f"final_output_type_7/trial_{cfg.curr_trial}_{mt}_{rt}.csv")
+                for mt in ("mems", "half_mems")
+                for rt in ("illumina", "ont")
+            ] + [
+                os.path.join(cfg.work_root, f"output_type_7/{mt}/{rt}/confusion_matrix.csv")
+                for mt in ("mems", "half_mems")
+                for rt in ("illumina", "ont")
+            ]
+            driver.run([Stage(
+                name="exp7",
+                outputs=outputs7,
+                fn=lambda: run_exp7(reads7, nonpivot_genomes, cfg.work_root,
+                                    threshold=cfg.threshold, seed=cfg.seed,
+                                    trial=cfg.curr_trial),
+            )])
+        else:
+            from .pipelines.exp8 import run_exp8, simulate_exp8_reads
+
+            # exp8 simulates its own reads from each pivot (2x Illumina +
+            # depth-30 ONT, first-N subset; exp_type_8.smk:85-135)
+            reads8 = simulate_exp8_reads(
+                pivots, cfg.num_reads_per_dataset, seed=cfg.read_sim_seed
+            )
+            # every (mem_type, t, read_type) CSV is a stage output, so a
+            # run killed between thresholds is not wrongly "satisfied"
+            outputs8 = [
+                os.path.join(cfg.work_root,
+                             f"output_type_8/{mt}/t_{t}/{rt}/confusion_matrix.csv")
+                for mt in ("mems", "half_mems")
+                for t in cfg.t_values
+                for rt in ("illumina", "ont")
+            ]
+            driver.run([Stage(
+                name="exp8",
+                outputs=outputs8,
+                fn=lambda: run_exp8(reads8, nonpivot_genomes, cfg.work_root,
+                                    t_values=cfg.t_values, seed=cfg.seed),
+            )])
     return 0
 
 
@@ -258,7 +315,7 @@ def main(argv=None) -> int:
                             "exp1 group beyond it streams in bounded memory, the other "
                             "steps raise)")
     run_p.add_argument("--trials", type=int, default=None,
-                       help="fan exp0/2/3/4/6 over trials 1..N (reference NUM_TRIALS; "
+                       help="fan exp0 and 2-8 over trials 1..N (reference NUM_TRIALS; "
                             "ignored by exp1)")
     run_p.add_argument("--force", action="store_true", help="ignore satisfied outputs")
     run_p.add_argument("--device", default="cuda",

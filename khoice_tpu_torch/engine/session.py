@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..classify.annotate import Annotation, build_annotation
+from ..io.packing import encode_records
 from . import ops
 from .occurrence import occurrence_table
 from .streaming import (
@@ -54,6 +55,12 @@ class KmerEngine:
         codes = np.asarray(codes, np.uint8)
         self._check(count_bytes(codes.shape[0], k), f"count (k={k})")
         return ops.count_codes(torch.from_numpy(codes).to(self.device), k, cs)
+
+    def count_seqs(self, seqs: Sequence[str], k: int, cs: int = 255) -> KmerTable:
+        """count_codes of the records joined with separators.  The JAX
+        package's takes `compact`, which shrinks a run-form table's
+        capacity; the port's tables are compact already, so it has none."""
+        return self.count_codes(encode_records(seqs), k, cs)
 
     def occurrence_table(self, member_codes: Sequence[np.ndarray], k: int,
                          cs: int = 5000) -> KmerTable:

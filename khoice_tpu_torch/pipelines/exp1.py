@@ -1,14 +1,22 @@
 """Experiment 1: whole-group k-mer uniqueness on one device (port of
-khoice_tpu/pipelines/exp1.py, its fused single-device path).
+khoice_tpu/pipelines/exp1.py, its single-device paths).
 
-Per group, the whole k grid comes from the shared-sort sweep
-(engine/ksweep.py): one doubled-text sort and one multi-k scan per
-key-word class.  The ks it cannot serve (a class of < 3 ks; every k of a
-group of more than 64 genomes) take the per-k fused path, one sort per k
-(engine/occurrence.py).  The across-groups set is the same sweep over one
-member per group (the group's genomes joined with separators).  The step_4/
-step_5/step_8/step_9 file layout and row order are the reference's, so
-the CSV bytes equal the JAX package's.
+The fused path (the default): per group, the whole k grid comes from the
+shared-sort sweep (engine/ksweep.py): one doubled-text sort and one
+multi-k scan per key-word class.  The ks it cannot serve (a class of
+< 3 ks; every k of a group of more than 64 genomes) take the per-k fused
+path, one sort per k (engine/occurrence.py).  The across-groups set is
+the same sweep over one member per group (the group's genomes joined with
+separators).
+
+fused=False runs the kmc_tools-shaped table ops of the reference DAG
+(workflow/rules/exp_type_1.smk:156-308) through KmerEngine: per (k,
+group) a canonical count of every genome, set_counts 1, the within-group
+union and its histogram; per k the across-groups union of the group sets
+(set_counts 1 of each union) and its histogram.  Same histograms.
+
+The step_4/step_5/step_8/step_9 file layout and row order are the
+reference's, so the CSV bytes equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 
 from ..engine import streaming
 from ..engine.ksweep import occurrence_histograms_sweep
+from ..engine.session import KmerEngine
 from ..io.packing import encode_records
 from ..reports.csvio import read_hist_txt, write_csv_rows, write_hist_txt
 from ..reports.metrics import append_group_normalization, summarize_histogram_type1
@@ -43,18 +52,28 @@ def run_exp1(
     k_values: Sequence[int],
     out_dir: str,
     device,
+    engine: KmerEngine | None = None,
     union_cs: int = 5000,
+    count_cs: int = 255,
     hist_cx: int = 10000,
+    write_hists: bool = True,
+    fused: bool = True,
     device_budget_bytes: int | None = None,
 ) -> Dict[str, str]:
     """groups: {group_num: [genome as list-of-record-seqs, ...]}; every
-    sweep runs on `device`.
+    sweep and table op runs on `device`.
 
-    A group whose in-core sweep would exceed `device_budget_bytes`
-    (default engine/streaming.default_device_budget_bytes) takes the
-    bounded-memory streaming sweep instead (equal results), as the JAX
-    package's exp1 does; a group whose per-k sorts would exceed it raises
-    DeviceBudgetExceeded.
+    fused=True takes the shared-sort sweep; a group whose in-core sweep
+    would exceed `device_budget_bytes` (default
+    engine/streaming.default_device_budget_bytes) takes the bounded-memory
+    streaming sweep instead (equal results), as the JAX package's exp1
+    does; a group whose per-k sorts would exceed it raises
+    DeviceBudgetExceeded.  fused=False runs the table ops through `engine`
+    (default a KmerEngine on `device` under that budget), which checks each
+    count and union against the budget first.  write_hists=False takes the
+    CSVs' histograms from memory instead of the step_4/step_8 files, which
+    are then not written.  The JAX package's `mesh` (the sharded sweep) is
+    not ported.
 
     Returns {"step_5": csv_path, "step_9": csv_path}."""
     device = torch.device(device)
@@ -84,14 +103,17 @@ def run_exp1(
             member_codes, ks_list, device, cs=union_cs, cx=hist_cx
         )
 
-    within_all = {num: sweep_members(codes[num], f"group {num}") for num in group_nums}
-    group_concat = [
-        np.concatenate(
-            [np.concatenate([c, np.full(1, 4, np.uint8)]) for c in codes[num]]
-        )
-        for num in group_nums
-    ]
-    across_all = sweep_members(group_concat, "across-groups")
+    if fused:
+        within_all = {num: sweep_members(codes[num], f"group {num}") for num in group_nums}
+        group_concat = [
+            np.concatenate(
+                [np.concatenate([c, np.full(1, 4, np.uint8)]) for c in codes[num]]
+            )
+            for num in group_nums
+        ]
+        across_all = sweep_members(group_concat, "across-groups")
+    else:
+        eng = engine or KmerEngine(device, budget)
 
     def step4_path(k, num):
         return os.path.join(out_dir, f"step_4/k_{k}/dataset_{num}/dataset_{num}_k{k}_hist.txt")
@@ -99,10 +121,35 @@ def run_exp1(
     def step8_path(k):
         return os.path.join(out_dir, f"step_8/k_{k}/all_datasets_k{k}_hist.txt")
 
+    # the table ops drop each table as soon as no later step needs it (the
+    # engine's budget checks count what the run holds on the device)
+    within_hists: Dict[tuple, List[int]] = {}
+    across_hists: Dict[int, List[int]] = {}
     for k in k_values:
+        group_sets = []
         for num in group_nums:
-            write_hist_txt(step4_path(k, num), within_all[num][int(k)], cx=hist_cx)
-        write_hist_txt(step8_path(k), across_all[int(k)], cx=hist_cx)
+            if fused:
+                hist = within_all[num][int(k)]
+            else:
+                members = [eng.set_counts(eng.count_codes(c, k, cs=count_cs), 1)
+                           for c in codes[num]]
+                union = eng.union(members, cs=union_cs)
+                del members
+                hist = eng.histogram(union, cx=hist_cx)
+                group_sets.append(eng.set_counts(union, 1))
+                del union
+            within_hists[(k, num)] = hist
+            if write_hists:
+                write_hist_txt(step4_path(k, num), hist, cx=hist_cx)
+        if fused:
+            hist = across_all[int(k)]
+        else:
+            across = eng.union(group_sets, cs=union_cs)
+            hist = eng.histogram(across, cx=hist_cx)
+            del across
+        across_hists[k] = hist
+        if write_hists:
+            write_hist_txt(step8_path(k), hist, cx=hist_cx)
 
     # --- step_5 CSV (row order: k outer, group inner, like the reference's
     # expand(k_len=..., num=...) input ordering, exp_type_1.smk:195) ---
@@ -110,7 +157,8 @@ def run_exp1(
     for k in k_values:
         for num in group_nums:
             row = [f"group_{num}", str(k)] + summarize_histogram_type1(
-                read_hist_txt(step4_path(k, num)), len(groups[num]), False, int(k)
+                read_hist_txt(step4_path(k, num)) if write_hists else within_hists[(k, num)],
+                len(groups[num]), False, int(k)
             )
             all_metrics.append(row)
     append_group_normalization(all_metrics, [f"group_{num}" for num in group_nums])
@@ -121,7 +169,8 @@ def run_exp1(
     all_metrics = []
     for k in k_values:
         row = ["full_group", str(k)] + summarize_histogram_type1(
-            read_hist_txt(step8_path(k)), len(group_nums), True, int(k)
+            read_hist_txt(step8_path(k)) if write_hists else across_hists[k],
+            len(group_nums), True, int(k)
         )
         all_metrics.append(row)
     max_ratio = max(row[8] for row in all_metrics)
@@ -129,5 +178,6 @@ def run_exp1(
         row.append(round(row[8] / max_ratio, 4))
     step9 = os.path.join(out_dir, "step_9/across_datasets_analysis.csv")
     write_csv_rows(step9, STEP9_HEADER, all_metrics)
-    log.info("exp1 on %s: %d groups x %d ks", device, len(group_nums), len(ks_list))
+    log.info("exp1 on %s (%s): %d groups x %d ks", device,
+             "fused" if fused else "table ops", len(group_nums), len(ks_list))
     return {"step_5": step5, "step_9": step9}

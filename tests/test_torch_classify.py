@@ -249,10 +249,13 @@ def database(rng, tmp_path):
     return str(root)
 
 
-@pytest.mark.parametrize("exp_type", [2, 3, 4, 6])
+@pytest.mark.parametrize("exp_type", [2, 3, 4, 5, 6, 7, 8])
 def test_cli_outputs_equal_jax_cli(database, tmp_path, exp_type):
     args = ["run", "--exp-type", str(exp_type), "--database-root", database,
             "--k-values", "7,8,12,21", "--kmers-per-dataset", "3000"]
+    if exp_type == 8:  # exp8 simulates its own reads: 4 per read type and dataset
+        (tmp_path / "config.yaml").write_text("NUM_READS_PER_DATASET: 4\n")
+        args += ["--config", str(tmp_path / "config.yaml")]
     proc = subprocess.run(
         [sys.executable, "-m", "khoice_tpu_torch", *args, "--device", "cpu",
          "--work-root", str(tmp_path / "port")],
@@ -274,3 +277,22 @@ def test_cli_device_budget_reaches_classification_sweeps(database, tmp_path):
         with pytest.raises(DeviceBudgetExceeded):
             tcli.main(["run", "--exp-type", str(exp_type), *common,
                        "--device-budget-gb", "1e-6"])
+
+
+@pytest.mark.parametrize("exp_type", [0, 2, 5, 6, 7, 8])
+def test_trials_use_the_jax_clis_work_roots(database, tmp_path, monkeypatch, exp_type):
+    """`--trials 2` runs each trial in the work root the JAX CLI gives it:
+    exp0's and exp6's trial-keyed outputs in the root, the others in
+    trial_{t}_results/."""
+    import khoice_tpu.cli as jcli
+
+    roots = {"port": [], "jax": []}
+    monkeypatch.setattr(tcli, "_run_one", lambda cfg, args, db, device, exp0_root: roots[
+        "port"].append((cfg.curr_trial, cfg.work_root, exp0_root)) or 0)
+    monkeypatch.setattr(jcli, "_run_one", lambda cfg, args, db, exp0_root: roots[
+        "jax"].append((cfg.curr_trial, cfg.work_root, exp0_root)) or 0)
+    args = ["run", "--exp-type", str(exp_type), "--database-root", database,
+            "--work-root", str(tmp_path), "--trials", "2"]
+    assert tcli.main(args + ["--device", "cpu"]) == 0 and jax_main(args) == 0
+    assert roots["port"] == roots["jax"]
+    assert [root == str(tmp_path) for _, root, _ in roots["port"]] == [exp_type in (0, 6)] * 2

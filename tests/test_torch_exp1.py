@@ -9,7 +9,10 @@ import sys
 import pytest
 
 from conftest import random_dna
+from khoice_tpu.engine.session import KmerEngine as JaxEngine
 from khoice_tpu.pipelines.exp1 import run_exp1 as jax_run_exp1
+from khoice_tpu_torch.engine.session import KmerEngine
+from khoice_tpu_torch.engine.streaming import DeviceBudgetExceeded
 from khoice_tpu_torch.pipelines.exp1 import run_exp1
 from test_exp1 import make_groups, oracle_exp1_csvs
 
@@ -34,6 +37,42 @@ def test_exp1_csvs_equal_jax_and_oracle(rng, tmp_path, ks):
     for k in ks:
         rel = f"step_8/k_{k}/all_datasets_k{k}_hist.txt"
         assert _read(tmp_path / "port" / rel) == _read(tmp_path / "jax" / rel)
+
+
+def test_exp1_table_ops_equal_jax_and_fused(rng, tmp_path):
+    """fused=False (the kmc_tools-shaped table ops) at ks of every word
+    class: the JAX package's fused=False CSVs and step_4/step_8 files, and
+    the port's fused CSVs; write_hists=False gives the same CSVs from
+    memory and writes no histogram file."""
+    ks = [11, 21, 31, 35]
+    groups = make_groups(rng, n_groups=2, genomes_per_group=3, glen=300)
+    ref = jax_run_exp1(groups, ks, str(tmp_path / "jax"), fused=False)
+    fused = run_exp1(groups, ks, str(tmp_path / "fused"), "cpu")
+    ops = run_exp1(groups, ks, str(tmp_path / "ops"), "cpu", engine=KmerEngine("cpu"),
+                   fused=False)
+    mem = run_exp1(groups, ks, str(tmp_path / "mem"), "cpu", fused=False, write_hists=False)
+    for step in ("step_5", "step_9"):
+        assert _read(ops[step]) == _read(ref[step]) == _read(fused[step]) == _read(mem[step])
+    for k in ks:
+        for rel in [f"step_4/k_{k}/dataset_{num}/dataset_{num}_k{k}_hist.txt" for num in groups] + [
+                f"step_8/k_{k}/all_datasets_k{k}_hist.txt"]:
+            assert _read(tmp_path / "ops" / rel) == _read(tmp_path / "jax" / rel)
+    assert sorted(os.listdir(tmp_path / "mem")) == ["step_5", "step_9"]
+
+
+def test_exp1_table_ops_check_the_budget(rng, tmp_path):
+    groups = make_groups(rng, n_groups=2, genomes_per_group=2, glen=200)
+    with pytest.raises(DeviceBudgetExceeded, match="count"):
+        run_exp1(groups, [11], str(tmp_path), "cpu", fused=False, device_budget_bytes=1000)
+
+
+@pytest.mark.parametrize("k", [11, 21, 31, 35])
+def test_count_seqs_dump_equals_jax(rng, k):
+    seqs = [random_dna(rng, 300, n_prob=0.02), random_dna(rng, 120), "ACGT" * 10 + "A" * 40]
+    got = KmerEngine("cpu").count_seqs(seqs, k, cs=3)
+    want = JaxEngine().count_seqs(seqs, k, cs=3)
+    assert got.dump() == want.dump()
+    assert max(c for _, c in got.dump()) == 3  # the poly-A run saturates at cs
 
 
 def _write_db(root, rng, n_datasets=2, n_genomes=2, glen=400):
@@ -64,10 +103,16 @@ def test_cli_exp1_on_cpu_and_unported_exp_types(rng, tmp_path):
     assert len(step5.strip().split("\n")) == 1 + 2 * 4
     assert len(step9.strip().split("\n")) == 1 + 4
 
-    proc = _cli("--exp-type", "5", "--device", "cpu", "--database-root", str(db),
-                "--work-root", str(tmp_path / "w5"))
+    # what is not ported yet (the sharded sweep) and what does not exist
+    # exit non-zero before any work
+    proc = _cli("--exp-type", "1", "--device", "cpu", "--database-root", str(db),
+                "--work-root", str(tmp_path / "w2"), "--mesh-shards", "2")
     assert proc.returncode != 0
     assert "python -m khoice_tpu" in proc.stderr and "not ported" in proc.stderr
+    proc = _cli("--exp-type", "9", "--device", "cpu", "--database-root", str(db),
+                "--work-root", str(tmp_path / "w9"))
+    assert proc.returncode != 0 and "unknown exp type 9" in proc.stderr
+    assert not (tmp_path / "w2").exists() and not (tmp_path / "w9").exists()
 
 
 def test_cli_without_cuda_fails_loudly(rng, tmp_path):
@@ -87,21 +132,32 @@ def test_cli_without_cuda_fails_loudly(rng, tmp_path):
 
 
 def test_port_never_imports_jax(rng, tmp_path):
-    """Walking every module of the port and running exp 0/1/2/3/4/6 on
-    the CPU, and exp 1/2 again on a 2-k grid (the per-k path), imports
-    neither jax nor anything of the JAX package."""
+    """Walking every module of the port and running exp 0-8 on the CPU
+    (exp 5, 7 and 8 with the native MS engine; exp8 on 4 reads per read
+    type and dataset), exp1 again with the table ops, and exp 1/2 again
+    on a 2-k grid (the per-k path), imports neither jax nor anything of
+    the JAX package."""
     db = tmp_path / "db"
     _write_db(str(db), rng, glen=3000)  # long enough for exp0's ONT reads
+    config = tmp_path / "config.yaml"
+    config.write_text("NUM_READS_PER_DATASET: 4\n")
     code = (
         "import sys, importlib, pkgutil\n"
         "import khoice_tpu_torch, khoice_tpu_torch.cli\n"
         "for m in pkgutil.walk_packages(khoice_tpu_torch.__path__, 'khoice_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "from khoice_tpu_torch.cli import main\n"
-        "for t in ('0', '1', '2', '3', '4', '6'):\n"
+        "for t in ('0', '1', '2', '3', '4', '5', '6', '7', '8'):\n"
         f"    assert main(['run', '--exp-type', t, '--device', 'cpu', '--database-root', {str(db)!r},\n"
         f"                 '--work-root', {str(tmp_path / 'work')!r}, '--k-values', '7,9,12',\n"
-        "                 '--kmers-per-dataset', '1000']) == 0\n"
+        f"                 '--kmers-per-dataset', '1000', '--config', {str(config)!r}]) == 0\n"
+        "import khoice_tpu_torch.mems.ms as ms\n"
+        "assert ms._LIB is not None\n"
+        "from khoice_tpu_torch.pipelines.exp0 import load_database_dir\n"
+        "from khoice_tpu_torch.pipelines.exp1 import run_exp1\n"
+        f"db = load_database_dir({str(db)!r})\n"
+        "groups = {n: [db[n][g] for g in sorted(db[n])] for n in db}\n"
+        f"run_exp1(groups, [7, 9, 12], {str(tmp_path / 'ops')!r}, 'cpu', fused=False)\n"
         "for t in ('1', '2'):\n"
         f"    assert main(['run', '--exp-type', t, '--device', 'cpu', '--database-root', {str(db)!r},\n"
         f"                 '--work-root', {str(tmp_path / 'perk')!r}, '--k-values', '11,31',\n"
@@ -123,6 +179,11 @@ def test_port_never_imports_jax(rng, tmp_path):
     assert (work / "final_analysis_type3/final_analysis_type3.csv").exists()
     assert (work / "accuracies_type_4/accuracy_values.csv").exists()
     assert (work / "trial_1_short_acc.csv").exists() and (work / "trial_1_long_acc.csv").exists()
+    assert (work / "output_type_5/half_mems/confusion_matrix.csv").exists()
+    assert (work / "final_output_type_7/trial_1_mems_ont.csv").exists()
+    assert (work / "output_type_8/half_mems/t_30/illumina/confusion_matrix.csv").exists()
+    assert (_read(tmp_path / "ops/step_9/across_datasets_analysis.csv")
+            == _read(work / "step_9/across_datasets_analysis.csv"))
     perk = tmp_path / "perk"
     assert (perk / "step_9/across_datasets_analysis.csv").exists()
     assert (perk / "within_dataset_analysis_type_2/within_dataset_analysis.csv").exists()
