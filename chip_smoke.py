@@ -105,6 +105,30 @@ Phases (any failure raises, so the exit code is non-zero):
      (D = 3, k in {7, 21, 33, 49}); and count_codes, union, intersect_sum,
      subtract and histogram at k in {11, 31, 45}.  (The CSV bytes are
      held against the JAX package and its oracle by the CPU tests.)
+  6. the key-range SPMD path (khoice_tpu_torch/dist/) over a key-range
+     group of one rank on NCCL (cuda:0, made in this process from a
+     FileStore: the machine has one card and NCCL takes one rank per
+     card), whose exchange, gathers and sums still run:
+     a. `run_exp1(..., group=g)` on 4a's database over the 30-point
+        grid, its step_5 and step_9 bytes equal to 4a's; every sort and
+        scan call held against its plain version, the peak within the
+        largest checked estimate and every checked step within its own;
+     b. `run_exp2`, `run_exp3` and `run_exp4` with the group on 4a's
+        exp0 (pivots, non-pivots; exp3's reads simulated as the CLI
+        does), their CSV bytes equal to 4a's 30-k runs'; every scan call
+        and the first SORT_HOLDS sorts of each run held;
+     c. `sharded_count_codes` of 4a's group 1 at k 21 and 31, the union
+        of the sets, intersect_sum, subtract, set_counts and the
+        histogram, equal to the single-device KmerEngine's tables, and
+        `sharded_occurrence_histogram` of 4b's first group (96 genomes,
+        kernels A, sort, B) and phase 5a's 300 genomes (C) at k 31, equal
+        to `occurrence_histogram`; every kernel call held;
+     d. exp1's sharded sweep of 4a's group 1 over the 30 ks on two gloo
+        ranks, both on cuda:0 (dist/launch.py::run_ranks; gloo takes CUDA
+        tensors), every rank's histograms equal to 6a's step_4 files,
+        every kernel call of each rank held.
+     Each run's launches are counted from 0 and added to the kernels
+     line's.  Phase 2 also asserts that the native FASTA scanner loaded.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -138,6 +162,13 @@ SORT_HOLDS = 3  # sorts of each 4a/4b run held against the plain sort
 STREAM_HOLDS = 2  # chunk sorts of each 4c run held against the plain sort
 SORT_RUN = "exp1 streamed on 2 x 96 x 1 Mbp"  # the run whose sort launches are reported
 MODES = ("pivot_rest", "multi_pivot", "containment", "buckets")
+CSVS = {  # each experiment's CSVs under its work root
+    1: ("step_5/within_datasets_analysis.csv", "step_9/across_datasets_analysis.csv"),
+    2: ("within_dataset_analysis_type_2/within_dataset_analysis.csv",
+        "across_dataset_analysis_type_2/across_dataset_analysis.csv"),
+    3: ("final_analysis_type3/final_analysis_type3.csv",),
+    4: ("accuracies_type_4/accuracy_values.csv",),
+}
 
 
 def phase(name):
@@ -169,6 +200,13 @@ def build():
     phase("2 build")
     from khoice_tpu_torch.kernels import _build
 
+    # the FASTA scanner builds with g++ and raises if it cannot
+    from khoice_tpu_torch.io import fasta
+
+    if os.environ.get("KHOICE_NO_NATIVE") or fasta._codec_lib() is None:
+        raise AssertionError("the native FASTA scanner did not load (KHOICE_NO_NATIVE set?)")
+    print("native FASTA scanner loaded from "
+          f"{os.path.relpath(fasta._BUILD_DIR, ROOT)}/libkhoice_fasta.so", flush=True)
     t0 = time.perf_counter()
     _build.load()
     print(f"built {os.path.relpath(_build.library_path(), ROOT)} in "
@@ -759,28 +797,35 @@ def kernel_specs(scan_plain):
     """The wrappers the engine calls, each with its plain version (the scan
     wrappers' only when scan_plain)."""
     from khoice_tpu_torch.classify import annotate
+    from khoice_tpu_torch.dist import ksweep as dksweep
+    from khoice_tpu_torch.dist import occurrence as doccurrence
     from khoice_tpu_torch.engine import ksweep, ksweep_classify, occurrence, ops, streaming
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
     from khoice_tpu_torch.kernels import sort as ksort
     from khoice_tpu_torch.kernels import vote as kvote
 
+    scan_occ = ksweep_scan.scan_multi_k_reference if scan_plain else None
+    scan_cls = ksweep_scan.scan_classify_reference if scan_plain else None
     return [
-        (ksweep, "scan_multi_k", "occ",
-         ksweep_scan.scan_multi_k_reference if scan_plain else None),
-        (streaming, "scan_multi_k", "occ",
-         ksweep_scan.scan_multi_k_reference if scan_plain else None),
-        (ksweep_classify, "scan_classify", "scan_classify",
-         ksweep_scan.scan_classify_reference if scan_plain else None),
+        (ksweep, "scan_multi_k", "occ", scan_occ),
+        (streaming, "scan_multi_k", "occ", scan_occ),
+        (dksweep, "scan_multi_k", "occ", scan_occ),
+        (ksweep_classify, "scan_classify", "scan_classify", scan_cls),
+        (dksweep, "scan_classify", "scan_classify", scan_cls),
         (occurrence, "extract_packed", "A packed", extract.extract_packed_reference),
+        (doccurrence, "extract_packed", "A packed", extract.extract_packed_reference),
         (occurrence, "extract_canonical", "A keys", extract.extract_canonical_reference),
+        (doccurrence, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (ops, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (annotate, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (occurrence, "occ_hist_packed", "B", occ_scan.occ_hist_packed_reference),
+        (doccurrence, "occ_hist_packed", "B", occ_scan.occ_hist_packed_reference),
         (occurrence, "occ_hist", "C", occ_scan.occ_hist_reference),
+        (doccurrence, "occ_hist", "C", occ_scan.occ_hist_reference),
         (kvote, "vote_mask", "vote_mask", kvote.vote_mask_reference),
         (kvote, "read_votes", "read_votes", kvote.read_votes_reference),
     ] + [(module, "sort_words", "sort", ksort.sort_words_reference)
-         for module in (ksweep, streaming, occurrence, ops, annotate)]
+         for module in (ksweep, streaming, occurrence, ops, annotate, dksweep, doccurrence)]
 
 
 def reset_counts():
@@ -823,16 +868,17 @@ def count_lines(path):
 
 class Estimates:
     """Each device-memory estimate that the engine checks against its
-    budget during a run (`check_device_budget`, imported by name in four
+    budget during a run (`check_device_budget`, imported by name in five
     modules), with what the run held on the card at that check, and the
     peak of the step it starts (until the next check; the plain checks'
     memory excluded, as Held excludes it)."""
 
     def __init__(self, held):
         from khoice_tpu_torch.classify import annotate
+        from khoice_tpu_torch.dist import ksweep as dksweep
         from khoice_tpu_torch.engine import ksweep_classify, session, streaming
 
-        self.modules = (streaming, ksweep_classify, session, annotate)
+        self.modules = (streaming, ksweep_classify, session, annotate, dksweep)
         self.held = held
         self.steps = [["before the first check", 0, 0]]  # [label, estimate, peak]
 
@@ -1013,17 +1059,28 @@ def main_paths(tmp):
     launches["pivot_rest"], launches["multi_pivot"] = c["pivot_rest"], c["multi_pivot"]
     sorts["exp2 on 4 x 8"] = c["sort"]
     merge(e, errors)
+    # the 30-k CSVs, before the per-k runs below rewrite exp3's and exp4's
+    csv30 = {}
+
+    def keep_csvs(exp_type):
+        for rel in CSVS[exp_type]:
+            with open(os.path.join(work, rel), "rb") as fd:
+                csv30[rel] = fd.read()
+
+    keep_csvs(2)
     c, e, _, _ = run_path("exp3, 30 ks", ["run", "--exp-type", "3", *common], every,
                           ["containment"], {
         os.path.join(work, "final_analysis_type3/final_analysis_type3.csv"): 1 + 2 * 4 * g * 4})
     launches["containment"] = c["containment"]
     sorts["exp3 on 4 x 8"] = c["sort"]
     merge(e, errors)
+    keep_csvs(3)
     c, e, _, _ = run_path("exp4, 30 ks", ["run", "--exp-type", "4", *common], every, ["buckets"], {
         os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * g})
     launches["buckets"] = c["buckets"]
     sorts["exp4 on 4 x 8"] = c["sort"]
     merge(e, errors)
+    keep_csvs(4)
     # the per-k table ops: a 2-k grid leaves every k to them
     perk = ["--force", "--k-values", "21,31"]
     c, e, _, _ = run_path("exp3 per-k (ks 21,31)", ["run", "--exp-type", "3", *common, *perk],
@@ -1039,7 +1096,7 @@ def main_paths(tmp):
     c, e, _ = exp6_run("exp6, 30 ks", db, work, 4)
     sorts["exp6 on 4 x 8"] = c["sort"]
     merge(e, errors)
-    return launches, errors, sorts, db, work1
+    return launches, errors, sorts, db, work1, work, csv30
 
 
 def large_group_paths(tmp):
@@ -1551,6 +1608,292 @@ def small_world_tables():
           "counter's (ks 11, 31, 45)")
 
 
+def nccl_group(tmp):
+    """A key-range group of one rank on NCCL, cuda:0, its default process
+    group made in this process from a FileStore (the card is the
+    machine's only one: NCCL takes one rank per card)."""
+    import torch.distributed as dist
+
+    from khoice_tpu_torch.dist.mesh import init_kv_group
+
+    store = dist.FileStore(os.path.join(tmp, "nccl_store"), 1)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    group = init_kv_group("cuda", world_size=1)
+    # NCCL makes its communicator at the first collective; 6a's wall is
+    # to be the sweep's, so that one runs here
+    dist.all_reduce(torch.zeros(1, device=group.device))
+    torch.cuda.synchronize()
+    print(f"NCCL group of one rank ready in {time.perf_counter() - t0:.2f} s (init and the "
+          "first collective, outside 6a's wall)", flush=True)
+    return group
+
+
+def gloo_cuda_probe_rank():
+    """Rank program of a two-rank gloo group with both ranks on cuda:0:
+    the port's exchange (uneven shares, one of them empty), gather and sum
+    on CUDA tensors.  Returns what this rank received."""
+    import torch.distributed as dist
+
+    from khoice_tpu_torch.dist.mesh import (KvGroup, all_sum, exchange_counts, exchange_rows,
+                                            gather_rows)
+
+    rank = dist.get_rank()
+    g = KvGroup(rank=rank, world_size=2, device=torch.device("cuda", 0))
+    shares = [3, 0] if rank == 0 else [2, 5]
+    rows = torch.arange(sum(shares) * 3, dtype=torch.int64, device=g.device).view(-1, 3)
+    rows += 100 * rank
+    recv = exchange_rows(rows, shares, exchange_counts(shares, g))
+    gathered = [t.cpu().tolist() for t in gather_rows(rows[:rank + 1], g)]
+    total = all_sum(torch.tensor([rank + 1], dtype=torch.int64, device=g.device))
+    return recv.cpu().tolist(), gathered, int(total.item())
+
+
+def sharded_sweep_rank(db):
+    """6d's rank program (one of two gloo ranks, both on cuda:0): exp1's
+    sharded sweep of 4a's group 1 over the 30 ks, every kernel call held
+    against its plain version.  Returns (histograms, launches, each
+    kernel's largest difference, wall)."""
+    import torch.distributed as dist
+
+    from khoice_tpu_torch.dist.ksweep import sharded_occurrence_histograms_sweep
+    from khoice_tpu_torch.dist.mesh import KvGroup
+    from khoice_tpu_torch.io.packing import encode_records
+    from khoice_tpu_torch.pipelines.exp0 import load_database_dir
+
+    group = KvGroup(rank=dist.get_rank(), world_size=dist.get_world_size(),
+                    device=torch.device("cuda", 0))
+    loaded = load_database_dir(db)
+    codes = [encode_records(loaded[1][n]) for n in sorted(loaded[1])]
+    with Held(kernel_specs(True), lambda kernel, k, nth: True) as held:
+        reset_counts()
+        t0 = time.perf_counter()
+        hists = sharded_occurrence_histograms_sweep(group, codes, K_GRID)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - held.plain_s
+        counts = read_counts()
+    return hists, counts, held.errors, wall
+
+
+def two_ranks_one_card(db, out1):
+    """6d: exp1's sharded sweep of 4a's group 1 over the 30 ks on two gloo
+    ranks (dist/launch.py::run_ranks), both on cuda:0 (gloo takes CUDA
+    tensors; NCCL takes one rank per card); every rank's histograms must
+    equal 6a's step_4 files for that group.  Returns the launches summed
+    over the ranks and each kernel's largest difference."""
+    from khoice_tpu_torch.dist.launch import run_ranks
+
+    torch.cuda.empty_cache()  # the ranks' processes need the card this one has cached
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, sharded_sweep_rank, (db,), backend="gloo", timeout_s=300)
+    launches, errors = {}, {}
+    for rank, (hists, counts, errs, wall) in enumerate(ranks):
+        for k in K_GRID:
+            want = read_hist(os.path.join(out1, f"step_4/k_{k}/dataset_1/dataset_1_k{k}_hist.txt"))
+            if hists[k] != want:
+                raise AssertionError(f"6d rank {rank} k={k}: histogram differs from 6a's")
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        merge(errs, errors)
+        print(f"6d rank {rank}: sweep wall {wall:.2f} s (plain checks excluded), launches "
+              f"{ {k: v for k, v in counts.items() if v} }, every kernel call held, equal",
+              flush=True)
+    for kernel in ("occ", "sort"):
+        if any(counts[kernel] < 1 for _, counts, _, _ in ranks):
+            raise AssertionError(f"6d: a rank never launched the {kernel} kernel")
+    print(f"6d: two gloo ranks on cuda:0, exp1's sharded sweep of group 1 (8 x 2 Mbp, 30 ks): "
+          f"every rank's histograms equal 6a's; {time.perf_counter() - t0:.1f} s with the "
+          f"ranks' start ({smi_line()})", flush=True)
+    return launches, errors
+
+
+def read_bytes(path):
+    with open(path, "rb") as fd:
+        return fd.read()
+
+
+def same_bytes(label, pairs):
+    """Raise unless every (path, bytes) pair is equal."""
+    for path, want in pairs:
+        if read_bytes(path) != want:
+            raise AssertionError(f"{label}: {path} differs from the single-device run's")
+
+
+def sharded_paths(tmp, db, work1, work, csv30, db96):
+    """6: the key-range SPMD path (khoice_tpu_torch/dist/) over a one-rank
+    NCCL group, whose exchange, gathers and sums still run: exp1 (6a) and
+    exp2/3/4 (6b) on 4a's database through the pipeline entries with the
+    group, their CSVs byte-equal to 4a's; the sharded tables and per-k
+    occurrence histograms (6c) equal to the single-device engine's.
+    Every kernel call of 6a and 6c and every scan call of 6b is held
+    against its plain version (6b: the first SORT_HOLDS sorts of a run).
+    Then 6d: the sharded sweep on two gloo ranks on the one card.
+    Returns each kernel's launches summed over the runs, each kernel's
+    largest difference and each run's wall and peak."""
+    phase("6 the key-range SPMD path: a one-rank NCCL group on cuda:0")
+    import torch.distributed as dist
+
+    from khoice_tpu_torch import cli
+    from khoice_tpu_torch.config import KhoiceConfig
+    from khoice_tpu_torch.pipelines.exp0 import load_database_dir
+    from khoice_tpu_torch.pipelines.exp1 import run_exp1
+    from khoice_tpu_torch.pipelines.exp2 import run_exp2
+    from khoice_tpu_torch.pipelines.exp3 import run_exp3, simulate_exp3_reads
+    from khoice_tpu_torch.pipelines.exp4 import run_exp4
+
+    g = len(K_GRID)
+    group = nccl_group(tmp)
+    launches, errors, stats = {}, {}, {}
+
+    def add(label, c, e, st):
+        for kernel, n in c.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        merge(e, errors)
+        stats[label] = st
+        print(f"  ({smi_line()})", flush=True)
+
+    try:
+        # 6a: exp1 at full width, every kernel call held
+        out1 = os.path.join(tmp, "sharded_exp1")
+
+        def exp1():
+            loaded = load_database_dir(db)
+            groups = {num: [loaded[num][n] for n in sorted(loaded[num])] for num in loaded}
+            run_exp1(groups, K_GRID, out1, "cuda", group=group)
+            return 0
+
+        c, e, _, st = run_path(
+            "6a exp1 sharded (1 rank, NCCL), 30 ks", exp1, lambda kernel, k, nth: True, ["occ"],
+            {os.path.join(out1, CSVS[1][0]): 1 + 4 * g, os.path.join(out1, CSVS[1][1]): 1 + g})
+        add("6a exp1", c, e, st)
+        same_bytes("6a exp1", [(os.path.join(out1, rel), read_bytes(os.path.join(work1, rel)))
+                               for rel in CSVS[1]])
+        print("6a: step_5 and step_9 bytes equal 4a's single-device run's", flush=True)
+
+        # 6b: exp2, exp3 and exp4 on 4a's exp0 (pivots, non-pivots), as the CLI
+        # builds their inputs
+        cfg = KhoiceConfig(kmers_per_dataset=2000000)
+        loaded = load_database_dir(db)
+        exp0 = cli._load_exp0(cfg, loaded, work)
+        pivots = {num: loaded[num][exp0["pivots"][num]] for num in loaded}
+        nonpivot = {num: [loaded[num][n] for n in exp0["nonpivots"][num]] for num in loaded}
+        rest = {num: nonpivot[num] + ([] if cfg.out_pivot else [pivots[num]]) for num in loaded}
+        reads = simulate_exp3_reads(pivots, cfg.kmers_per_dataset, seed=cfg.read_sim_seed)
+        out = os.path.join(tmp, "sharded_exp234")
+        runs = [
+            (2, ["pivot_rest", "multi_pivot"], lambda: run_exp2(
+                pivots, nonpivot, K_GRID, out, "cuda", union_cs=cfg.union_cs,
+                hist_cx=cfg.hist_cx, group=group)),
+            (3, ["containment"], lambda: run_exp3(
+                reads, nonpivot, K_GRID, out, "cuda", union_cs=cfg.union_cs, group=group)),
+            (4, ["buckets"], lambda: run_exp4(
+                pivots, rest, K_GRID, out, "cuda", count_cs=cfg.count_cs,
+                union_cs=cfg.union_cs, group=group)),
+        ]
+        lines = {2: 1 + 4 * g, 3: 1 + 2 * 4 * g * 4, 4: 4 * g}
+        for exp_type, uses, fn in runs:
+            def drive(fn=fn):
+                fn()
+                return 0
+
+            c, e, _, st = run_path(
+                f"6b exp{exp_type} sharded (1 rank, NCCL), 30 ks", drive,
+                hold_sorts_and(lambda kernel, k: True), uses,
+                {os.path.join(out, rel): lines[exp_type] for rel in CSVS[exp_type][:1]})
+            add(f"6b exp{exp_type}", c, e, st)
+            same_bytes(f"6b exp{exp_type}", [(os.path.join(out, rel), csv30[rel])
+                                             for rel in CSVS[exp_type]])
+        print("6b: exp2, exp3 and exp4's CSV bytes equal 4a's single-device runs'; every "
+              "scan call held against its plain version, equal", flush=True)
+
+        c, e, st = sharded_tables(group, db, db96)
+        add("6c tables and occurrence", c, e, st)
+    finally:
+        dist.destroy_process_group()
+    c, e = two_ranks_one_card(db, out1)
+    add("6d two ranks on one card", c, e, None)
+    return launches, errors, stats
+
+
+def sharded_tables(group, db, db96):
+    """6c: sharded_count_codes of 4a's group 1 (8 genomes of 2 Mbp) at k 21
+    and 31, then the union of their sets, intersect_sum, subtract, set_counts
+    and the histogram, each table equal to the single-device KmerEngine's;
+    sharded_occurrence_histogram of 4b's first group (96 genomes of 1 Mbp)
+    at k 31 (kernels A, the sort and B) and of phase 5a's 300-genome group
+    at k 31 (C), equal to occurrence_histogram's.  Every kernel call of the
+    sharded run is held against its plain version."""
+    from khoice_tpu_torch.dist import sharded as dsh
+    from khoice_tpu_torch.dist.occurrence import sharded_occurrence_histogram
+    from khoice_tpu_torch.engine.occurrence import occurrence_histogram
+    from khoice_tpu_torch.engine.session import KmerEngine
+    from khoice_tpu_torch.io.packing import encode_records as enc
+    from khoice_tpu_torch.pipelines.exp0 import load_database_dir
+
+    def group_codes(path, num):
+        loaded = load_database_dir(path)
+        return [enc(loaded[num][n]) for n in sorted(loaded[num])]
+
+    genomes = group_codes(db, 1)
+    members96 = group_codes(db96, 1)
+    members300 = [enc(gen) for gen in small_genomes(random.Random(4321), 2, 300, base_len=400,
+                                                    extra=40)[2]]
+    got = {}
+
+    def host(t):
+        """The one shard's (keys [n, w], counts [n]) uint32, as
+        KmerTable.to_host gives them."""
+        words, counts, _ = dsh.sharded_table_to_host(t)
+        return words[:, 0].T, counts[0]
+
+    def drive():
+        dsh.reset_session_splits()
+        for k in (21, 31):
+            raw = [dsh.sharded_count_codes(group, c, k) for c in genomes]
+            union = dsh.sharded_union_many([dsh.sharded_set_counts(t, 1) for t in raw], cs=5000)
+            got[k] = {
+                "count": host(raw[0]),
+                "union": host(union),
+                "intersect": host(dsh.sharded_intersect_sum(raw[0], raw[1])),
+                "subtract": host(dsh.sharded_subtract(raw[0], raw[1])),
+                "set_counts": host(dsh.sharded_set_counts(raw[2], 3)),
+                "hist": dsh.sharded_histogram(union, cx=16).tolist(),
+            }
+        got["occ96"] = sharded_occurrence_histogram(group, members96, 31, cx=128)
+        got["occ300"] = sharded_occurrence_histogram(group, members300, 31, cx=512)
+        return 0
+
+    c, e, _, st = run_path("6c sharded tables (k 21, 31) and per-k occurrence (96 and 300 "
+                           "genomes, k 31)", drive, lambda kernel, k, nth: True,
+                           ["A", "B", "C"], {}, per_call=(), incore=False)
+    eng = KmerEngine("cuda")
+    for k in (21, 31):
+        raw = [eng.count_codes(c, k) for c in genomes]
+        union = eng.union([eng.set_counts(t, 1) for t in raw], cs=5000)
+        want = {
+            "count": raw[0].to_host(), "union": union.to_host(),
+            "intersect": eng.intersect_sum(raw[0], raw[1]).to_host(),
+            "subtract": eng.subtract(raw[0], raw[1]).to_host(),
+            "set_counts": eng.set_counts(raw[2], 3).to_host(),
+            "hist": eng.histogram(union, cx=16),
+        }
+        for name, w in want.items():
+            g = got[k][name]
+            equal = g == w if name == "hist" else all(np.array_equal(a, b) for a, b in zip(g, w))
+            if not equal:
+                raise AssertionError(f"6c k={k}: sharded {name} differs from the single-device one")
+        if not (len(want["intersect"][1]) and len(want["subtract"][1]) and max(want["hist"][1:])):
+            raise AssertionError(f"6c k={k}: an empty table, nothing compared")
+    for name, members, cx in (("occ96", members96, 128), ("occ300", members300, 512)):
+        if got[name] != occurrence_histogram(members, 31, "cuda", cx=cx) or not any(got[name]):
+            raise AssertionError(f"6c: sharded {name} differs from the single-device histogram")
+    print("6c: the sharded tables (count, union, intersect_sum, subtract, set_counts, "
+          "histogram at k 21 and 31) and per-k occurrence histograms (96 genomes, kernel B; "
+          "300 genomes, kernel C) equal the single-device engine's; every kernel call held",
+          flush=True)
+    return c, e, st
+
+
 def kernel_record(name, source, replaces, launches, r, library_ms=None):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1572,7 +1915,7 @@ def main():
     walls["kernels vs plain"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        launches, errors, sorts, db, work1 = main_paths(tmp)
+        launches, errors, sorts, db, work1, work, csv30 = main_paths(tmp)
         walls["main paths 4 x 8"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         big_launches, big_errors, big_sorts, db96, work96 = large_group_paths(tmp)
@@ -1604,6 +1947,16 @@ def main():
         small_world_classify()
         small_world_tables()
         walls["small worlds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sharded_launches, sharded_errors, _ = sharded_paths(tmp, db, work1, work, csv30, db96)
+        walls["sharded 6"] = time.perf_counter() - t0
+        merge(sharded_errors, errors)
+        # each kernel's record adds phase 6's runs, each counted from 0
+        for kernel in launches:
+            launches[kernel] += sharded_launches.get(kernel, 0)
+        print(f"phase 6's launches (6a + 6b + 6c + 6d's two ranks): "
+              f"{ {k: v for k, v in sharded_launches.items() if v} }; the kernels line adds "
+              f"them to phase 4/5's", flush=True)
     for kernel, err in errors.items():
         key = kernel.split()[0]  # "A keys", "A packed" -> "A"
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)

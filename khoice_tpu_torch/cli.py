@@ -5,9 +5,13 @@ The flags are khoice_tpu's (`python -m khoice_tpu run ...`) plus
 package: exp1-4 and exp6 on one device, on groups of any size and any k
 grid (groups of more than 64 genomes and small grids take the per-k
 fused path); exp0 and the MEM experiments exp5, 7 and 8 on the host, as
-the JAX package does, so they take no device.  The sharded sweep
-(`--mesh-shards` > 1) is served by `python -m khoice_tpu` until it is
-ported.  Inputs follow the reference database layout
+the JAX package does, so they take no device.  exp1-4 run sharded over a
+key-range group of N ranks when `mesh_shards` (the flag or the config's)
+is N > 1, one process per rank on its own device:
+
+    torchrun --nproc-per-node N -m khoice_tpu_torch run --exp-type 1 --mesh-shards N ...
+
+(exp6's sharded votes are not ported yet).  Inputs follow the reference database layout
 (`database_root/dataset_{i}/*.fna.gz`) and exp0's trial_{t}/ layout;
 outputs land under --work-root with the reference's directory names, and
 a stage whose outputs exist is skipped (runtime/driver.py) unless --force.
@@ -16,10 +20,12 @@ a stage whose outputs exist is skipped (runtime/driver.py) unless --force.
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from .config import KhoiceConfig
 from .io.fasta import read_fasta
@@ -30,6 +36,7 @@ log = get_logger("khoice.cli")
 
 EXP_TYPES = (0, 1, 2, 3, 4, 5, 6, 7, 8)
 HOST_EXP_TYPES = (0, 5, 7, 8)  # they run nothing on a device
+SHARDED_EXP_TYPES = (1, 2, 3, 4)  # mesh_shards > 1 runs them over a key-range group
 
 
 def _device(name: str) -> torch.device:
@@ -90,17 +97,25 @@ def cmd_run(args) -> int:
         cfg.num_datasets = args.num_datasets
     if args.kmers_per_dataset:
         cfg.kmers_per_dataset = args.kmers_per_dataset
+    if args.mesh_shards:
+        cfg.mesh_shards = args.mesh_shards
     if args.trials:
         cfg.num_trials = args.trials
     if args.device_budget_gb:
         cfg.device_budget_gb = args.device_budget_gb
     if cfg.exp_type not in EXP_TYPES:
         raise SystemExit(f"unknown exp type {cfg.exp_type}")
-    if args.mesh_shards and args.mesh_shards > 1:
+    sharded = cfg.mesh_shards > 1 and cfg.exp_type in SHARDED_EXP_TYPES
+    if cfg.mesh_shards > 1 and cfg.exp_type == 6:
         raise SystemExit(
-            "--mesh-shards > 1 (the sharded sweep) is not ported to "
-            "khoice_tpu_torch yet; it is served by `python -m khoice_tpu run`"
+            "mesh_shards > 1 with exp 6 (its sharded read votes, khoice_tpu/dist/vote.py) "
+            "is not ported to khoice_tpu_torch yet; run exp 6 with mesh_shards 1"
         )
+    if sharded:
+        _check_launch(cfg.mesh_shards, args.device)
+    elif cfg.mesh_shards > 1:
+        log.warning("mesh_shards=%d ignored for exp_type=%d (it runs on the host)",
+                    cfg.mesh_shards, cfg.exp_type)
     if cfg.exp_type == 1:
         for flag, value in (("--num-datasets", args.num_datasets),
                             ("--kmers-per-dataset", args.kmers_per_dataset)):
@@ -109,6 +124,47 @@ def cmd_run(args) -> int:
                             "and every k-mer)", flag, value)
     device = _device(args.device) if cfg.exp_type not in HOST_EXP_TYPES else None
 
+    owned = sharded and not dist.is_initialized()
+    group = None
+    if sharded:
+        from .dist.mesh import init_kv_group
+
+        group = init_kv_group(device, world_size=cfg.mesh_shards)
+        device = group.device
+        if group.rank:  # rank 0 logs at info
+            logging.disable(logging.INFO)
+        log.info("sharded over %d ranks (kv key-range group), rank 0 on %s",
+                 group.world_size, device)
+    try:
+        return _run_trials(cfg, args, device, group)
+    finally:
+        if group is not None:
+            logging.disable(logging.NOTSET)
+        if owned:
+            dist.destroy_process_group()
+
+
+def _check_launch(mesh_shards: int, device_name: str) -> None:
+    """A sharded run needs one process per rank, as torchrun starts them,
+    and on CUDA one card per rank on the host; exit before any group
+    starts if it has neither."""
+    world = os.environ.get("WORLD_SIZE")
+    if world is None or int(world) != mesh_shards:
+        raise SystemExit(
+            f"mesh_shards {mesh_shards} runs one process per rank; launch it with "
+            f"`torchrun --nproc-per-node {mesh_shards} -m khoice_tpu_torch run ... "
+            f"--mesh-shards {mesh_shards}` (WORLD_SIZE is {world})"
+        )
+    if torch.device(device_name).type == "cuda":
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if torch.cuda.device_count() < local:
+            raise SystemExit(
+                f"{local} ranks on this host need {local} CUDA devices, and it has "
+                f"{torch.cuda.device_count()}: NCCL runs one rank per card"
+            )
+
+
+def _run_trials(cfg: KhoiceConfig, args, device, group) -> int:
     from .pipelines.exp0 import load_database_dir
 
     db = load_database_dir(cfg.database_root)
@@ -136,13 +192,32 @@ def cmd_run(args) -> int:
                     else os.path.join(base_root, f"trial_{t}_results")
                 )
                 log.info("=== trial %d/%d ===", t, args.trials)
-                rc = max(rc, _run_one(cfg, args, db, device, exp0_root=base_root))
+                rc = max(rc, _run_one(cfg, args, db, device, exp0_root=base_root, group=group))
             cfg.work_root = base_root
             return rc
-    return _run_one(cfg, args, db, device, exp0_root=cfg.work_root)
+    return _run_one(cfg, args, db, device, exp0_root=cfg.work_root, group=group)
 
 
-def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
+def _run_stages(driver: Driver, stages, group) -> None:
+    """driver.run(stages); over a key-range group every rank makes rank 0's
+    stage decisions: rank 0 checks a stage's resume markers and broadcasts
+    whether it runs before any rank acts (a rank that skipped a stage that
+    another entered would hang in its first collective); rank 0 runs it
+    through a driver (the log, the outputs check, the manifest), the other
+    ranks call its function, and a barrier closes it."""
+    if group is None:
+        driver.run(stages)
+        return
+    for stage in stages:
+        todo = group.broadcast_flag(driver.force or not stage.satisfied())
+        if group.rank == 0:
+            Driver(driver.work_root, force=todo).run([stage])
+        elif todo:
+            stage.fn()
+        group.barrier()
+
+
+def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str, group=None) -> int:
     driver = Driver(cfg.work_root, force=args.force)
     et = cfg.exp_type
     budget = int(cfg.device_budget_gb * 2**30) if cfg.device_budget_gb else None
@@ -162,7 +237,7 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
         from .pipelines.exp1 import run_exp1
 
         groups = {num: genomes_of(num) for num in db}
-        driver.run([Stage(
+        _run_stages(driver, [Stage(
             name="exp1",
             outputs=[
                 os.path.join(cfg.work_root, "step_5/within_datasets_analysis.csv"),
@@ -171,11 +246,17 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
             fn=lambda: run_exp1(
                 groups, cfg.k_values, cfg.work_root, device,
                 union_cs=cfg.union_cs, count_cs=cfg.count_cs, hist_cx=cfg.hist_cx,
-                device_budget_bytes=budget,
+                device_budget_bytes=budget, group=group,
             ),
-        )])
+        )], group)
     else:
-        exp0 = _ensure_exp0(cfg, db, exp0_root)
+        if group is None:
+            exp0 = _ensure_exp0(cfg, db, exp0_root)
+        else:  # rank 0 runs exp0 if needed; every rank reads its outputs
+            if group.rank == 0:
+                _ensure_exp0(cfg, db, exp0_root)
+            group.barrier()
+            exp0 = _load_exp0(cfg, db, exp0_root)
         pivots = {num: db[num][exp0["pivots"][num]] for num in db}
         nonpivot_genomes = {
             num: [db[num][n] for n in exp0["nonpivots"][num]] for num in db
@@ -186,34 +267,34 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str) -> int:
         if et == 2:
             from .pipelines.exp2 import run_exp2
 
-            driver.run([Stage(
+            _run_stages(driver, [Stage(
                 name="exp2",
                 outputs=[os.path.join(cfg.work_root, "within_dataset_analysis_type_2/within_dataset_analysis.csv")],
                 fn=lambda: run_exp2(pivots, nonpivot_genomes, cfg.k_values, cfg.work_root,
-                                    device, union_cs=cfg.union_cs,
-                                    hist_cx=cfg.hist_cx, device_budget_bytes=budget),
-            )])
+                                    device, union_cs=cfg.union_cs, hist_cx=cfg.hist_cx,
+                                    device_budget_bytes=budget, group=group),
+            )], group)
         elif et == 3:
             from .pipelines.exp3 import run_exp3, simulate_exp3_reads
 
             reads = simulate_exp3_reads(pivots, cfg.kmers_per_dataset, seed=cfg.read_sim_seed)
-            driver.run([Stage(
+            _run_stages(driver, [Stage(
                 name="exp3",
                 outputs=[os.path.join(cfg.work_root, "final_analysis_type3/final_analysis_type3.csv")],
                 fn=lambda: run_exp3(reads, nonpivot_genomes, cfg.k_values, cfg.work_root,
                                     device, union_cs=cfg.union_cs,
-                                    device_budget_bytes=budget),
-            )])
+                                    device_budget_bytes=budget, group=group),
+            )], group)
         elif et == 4:
             from .pipelines.exp4 import run_exp4
 
-            driver.run([Stage(
+            _run_stages(driver, [Stage(
                 name="exp4",
                 outputs=[os.path.join(cfg.work_root, "accuracies_type_4/accuracy_values.csv")],
                 fn=lambda: run_exp4(pivots, rest, cfg.k_values, cfg.work_root, device,
                                     count_cs=cfg.count_cs, union_cs=cfg.union_cs,
-                                    device_budget_bytes=budget),
-            )])
+                                    device_budget_bytes=budget, group=group),
+            )], group)
         elif et == 6:
             from .pipelines.exp6 import READ_TYPE_LABEL, run_exp6
 
@@ -308,7 +389,11 @@ def main(argv=None) -> int:
                        help="31-mer budget of the read sets exp0 and exp3 simulate "
                             "(ignored by exp1)")
     run_p.add_argument("--mesh-shards", type=int, default=None,
-                       help="devices along the k-mer key-range mesh axis (not ported: 1 only)")
+                       help="ranks of the k-mer key-range group for exp 1-4 (default 1: one "
+                            "device); N > 1 needs N processes, one per device: launch with "
+                            "`torchrun --nproc-per-node N -m khoice_tpu_torch run ... "
+                            "--mesh-shards N` (NCCL on CUDA, one card per rank; gloo with "
+                            "--device cpu)")
     run_p.add_argument("--device-budget-gb", type=float, default=None,
                        help="device memory budget of the exp1-4 sweeps, the per-k "
                             "sorts and exp6's votes (default: 85%% of the device; an "

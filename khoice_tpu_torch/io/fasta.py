@@ -1,6 +1,9 @@
 # Copied from khoice_tpu/io/fasta.py.
 """FASTA / FASTA.gz reading and writing (host side).
 
+The port's copy differs in one respect: the native scanner raises when it
+cannot be built (see below).
+
 Covers the file-format surface the reference gets from seqtk/samtools:
 - multi-record FASTA (.fna/.fa), optionally gzip-compressed (the reference's
   inputs are `*.fna.gz`, reference: workflow/rules/exp_type_1.smk:158)
@@ -35,62 +38,78 @@ __all__ = [
 
 # --- native scanner (khoice_tpu_torch/native/fasta_codec.cpp) ---------------
 # The reference gets native-speed FASTA ingest from KMC3/seqtk; this binds
-# the rebuild's C++ scanner over ctypes, with the pure-Python loop below as
-# the fallback (KHOICE_NO_NATIVE=1 forces the fallback).  The port builds
-# it with g++ into the git-ignored khoice_tpu_torch/_build/, beside the
-# CUDA kernels, so it writes nothing outside its checkout.
+# the rebuild's C++ scanner over ctypes.  The port builds it with g++ into
+# the git-ignored khoice_tpu_torch/_build/, beside the CUDA kernels, so it
+# writes nothing outside its checkout.  A failed build or load raises
+# NativeCodecError with g++'s message (the JAX package falls back to the
+# pure-Python loop below instead); KHOICE_NO_NATIVE=1 is the one way to
+# that loop, which gives the same records.
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _CODEC_LOCK = threading.Lock()
 _CODEC_LIB = None
-_CODEC_FAILED = False
+
+
+class NativeCodecError(RuntimeError):
+    """The native FASTA scanner could not be compiled or loaded."""
+
+
+def _compile(src: str, so: str) -> None:
+    # a private temporary name: concurrent processes may build at once
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+    os.close(fd)
+    try:
+        try:
+            proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC", src, "-o", tmp],
+                                  capture_output=True, text=True)
+        except OSError as exc:
+            raise NativeCodecError(f"cannot run g++ to build {src}: {exc}") from exc
+        if proc.returncode != 0:
+            raise NativeCodecError(
+                f"g++ failed (exit {proc.returncode}) building {src}:\n{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _codec_lib():
-    global _CODEC_LIB, _CODEC_FAILED
+    """The loaded scanner, built first if it is missing or older than its
+    source; None when KHOICE_NO_NATIVE is set.  Raises NativeCodecError
+    when it cannot be built or loaded."""
+    global _CODEC_LIB
     if os.environ.get("KHOICE_NO_NATIVE"):
         return None
     with _CODEC_LOCK:
-        if _CODEC_LIB is not None or _CODEC_FAILED:
+        if _CODEC_LIB is not None:
             return _CODEC_LIB
         src = os.path.join(_NATIVE_DIR, "fasta_codec.cpp")
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        so = os.path.join(_BUILD_DIR, "libkhoice_fasta.so")
+        if (not os.path.exists(so)) or os.path.getmtime(so) < os.path.getmtime(src):
+            _compile(src, so)
         try:
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            so = os.path.join(_BUILD_DIR, "libkhoice_fasta.so")
-            if (not os.path.exists(so)) or os.path.getmtime(so) < os.path.getmtime(src):
-                # a private temporary name: concurrent processes may build at once
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-                os.close(fd)
-                try:
-                    subprocess.run(
-                        ["g++", "-O3", "-shared", "-fPIC", src, "-o", tmp],
-                        check=True,
-                        capture_output=True,
-                    )
-                    os.replace(tmp, so)
-                finally:
-                    if os.path.exists(tmp):
-                        os.remove(tmp)
             lib = ctypes.CDLL(so)
-            lib.fasta_scan.restype = ctypes.c_int64
-            lib.fasta_scan.argtypes = [
-                ctypes.c_char_p,
-                ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_uint8),
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_int64,
-                ctypes.c_int,
-            ]
-            _CODEC_LIB = lib
-        except Exception:
-            _CODEC_FAILED = True
+        except OSError as exc:
+            raise NativeCodecError(f"cannot load {so}: {exc}") from exc
+        lib.fasta_scan.restype = ctypes.c_int64
+        lib.fasta_scan.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64,
+            ctypes.c_int,
+        ]
+        _CODEC_LIB = lib
         return _CODEC_LIB
 
 
 def _scan_native(data: bytes, to_codes: bool):
-    """Returns (names, [sequence slices of seq_buf]) or None if unavailable."""
+    """Returns (names, [sequence slices of seq_buf]), or None under
+    KHOICE_NO_NATIVE."""
     lib = _codec_lib()
     if lib is None:
         return None
@@ -106,8 +125,8 @@ def _scan_native(data: bytes, to_codes: bool):
         max_recs,
         1 if to_codes else 0,
     )
-    if nr < 0:
-        return None
+    if nr < 0:  # more records than the '>' count allows: cannot happen
+        raise RuntimeError(f"fasta_scan failed ({nr}) on {n} bytes")
     names, seqs = [], []
     for r in range(nr):
         ns, ne, ss, se = rec[4 * r : 4 * r + 4]

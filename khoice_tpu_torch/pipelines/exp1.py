@@ -1,5 +1,5 @@
-"""Experiment 1: whole-group k-mer uniqueness on one device (port of
-khoice_tpu/pipelines/exp1.py, its single-device paths).
+"""Experiment 1: whole-group k-mer uniqueness (port of
+khoice_tpu/pipelines/exp1.py).
 
 The fused path (the default): per group, the whole k grid comes from the
 shared-sort sweep (engine/ksweep.py): one doubled-text sort and one
@@ -7,7 +7,9 @@ multi-k scan per key-word class.  The ks it cannot serve (a class of
 < 3 ks; every k of a group of more than 64 genomes) take the per-k fused
 path, one sort per k (engine/occurrence.py).  The across-groups set is
 the same sweep over one member per group (the group's genomes joined with
-separators).
+separators).  With a key-range group (`group`, the JAX package's `mesh`)
+the same sweeps run sharded over its ranks (dist/ksweep.py), and the ks
+they leave over take the sharded per-k path (dist/occurrence.py).
 
 fused=False runs the kmc_tools-shaped table ops of the reference DAG
 (workflow/rules/exp_type_1.smk:156-308) through KmerEngine: per (k,
@@ -27,6 +29,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..dist.ksweep import sharded_occurrence_histograms_sweep
 from ..engine import streaming
 from ..engine.ksweep import occurrence_histograms_sweep
 from ..engine.session import KmerEngine
@@ -59,6 +62,7 @@ def run_exp1(
     write_hists: bool = True,
     fused: bool = True,
     device_budget_bytes: int | None = None,
+    group=None,
 ) -> Dict[str, str]:
     """groups: {group_num: [genome as list-of-record-seqs, ...]}; every
     sweep and table op runs on `device`.
@@ -72,8 +76,12 @@ def run_exp1(
     (default a KmerEngine on `device` under that budget), which checks each
     count and union against the budget first.  write_hists=False takes the
     CSVs' histograms from memory instead of the step_4/step_8 files, which
-    are then not written.  The JAX package's `mesh` (the sharded sweep) is
-    not ported.
+    are then not written.
+
+    group: a dist/mesh.py KvGroup (the JAX package's `mesh`): the fused
+    sweeps run over its ranks, on `device` (each rank's own), within the
+    budget and without streaming, as in the JAX package; every rank calls
+    run_exp1 with the same arguments, and only rank 0 writes the files.
 
     Returns {"step_5": csv_path, "step_9": csv_path}."""
     device = torch.device(device)
@@ -86,9 +94,18 @@ def run_exp1(
         num: [encode_records(seqs) for seqs in groups[num]] for num in group_nums
     }
 
+    if group is not None and not fused:
+        raise ValueError("the table ops (fused=False) have no sharded path")
+
     def sweep_members(member_codes, label):
         """In-core shared-sort sweep, or the bounded-memory streaming
-        sweep when the group exceeds the device budget."""
+        sweep when the group exceeds the device budget; over a key-range
+        group, the sharded sweep."""
+        if group is not None:
+            return sharded_occurrence_histograms_sweep(
+                group, member_codes, ks_list, cs=union_cs, cx=hist_cx,
+                device_budget_bytes=budget,
+            )
         total = sum(int(c.shape[0]) + 1 for c in member_codes)
         need = streaming.incore_sweep_bytes(total, ks_list, len(member_codes))
         if need > budget:
@@ -114,6 +131,11 @@ def run_exp1(
         across_all = sweep_members(group_concat, "across-groups")
     else:
         eng = engine or KmerEngine(device, budget)
+
+    step5 = os.path.join(out_dir, "step_5/within_datasets_analysis.csv")
+    step9 = os.path.join(out_dir, "step_9/across_datasets_analysis.csv")
+    if group is not None and group.rank != 0:  # rank 0 writes
+        return {"step_5": step5, "step_9": step9}
 
     def step4_path(k, num):
         return os.path.join(out_dir, f"step_4/k_{k}/dataset_{num}/dataset_{num}_k{k}_hist.txt")
@@ -162,7 +184,6 @@ def run_exp1(
             )
             all_metrics.append(row)
     append_group_normalization(all_metrics, [f"group_{num}" for num in group_nums])
-    step5 = os.path.join(out_dir, "step_5/within_datasets_analysis.csv")
     write_csv_rows(step5, STEP5_HEADER, all_metrics)
 
     # --- step_9 CSV ---
@@ -176,8 +197,9 @@ def run_exp1(
     max_ratio = max(row[8] for row in all_metrics)
     for row in all_metrics:
         row.append(round(row[8] / max_ratio, 4))
-    step9 = os.path.join(out_dir, "step_9/across_datasets_analysis.csv")
     write_csv_rows(step9, STEP9_HEADER, all_metrics)
     log.info("exp1 on %s (%s): %d groups x %d ks", device,
              "fused" if fused else "table ops", len(group_nums), len(ks_list))
+    if group is not None:
+        log.info("exp1 sharded over %d ranks", group.world_size)
     return {"step_5": step5, "step_9": step9}

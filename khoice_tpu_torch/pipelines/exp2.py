@@ -13,7 +13,9 @@ subtract/intersect histograms (within scope), and ONE sort over all
 pivots + groups serves the across scope.  The ks the plan cannot serve
 (a class of < 3 ks; every k of a dataset over the sweep's 64-member
 mask) take the JAX package's per-k table ops over a KmerEngine
-(engine/session.py).  Row order (dataset-major, k inner), headers and
+(engine/session.py).  With a key-range group (`group`, the JAX package's
+`mesh`) both scopes' sweeps run sharded over its ranks
+(dist/ksweep_classify.py).  Row order (dataset-major, k inner), headers and
 file layout are the reference's, so the CSV bytes equal the JAX
 package's.
 """
@@ -25,7 +27,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
-from ..engine.ksweep_classify import multi_pivot_counts_sweep, pivot_rest_counts_sweep
+from ..dist import ksweep_classify as dkc
+from ..engine import ksweep_classify as kc
 from ..engine.session import KmerEngine
 from ..io.packing import encode_records
 from ..reports.csvio import write_csv_rows, write_hist_txt
@@ -82,12 +85,23 @@ def run_exp2(
     union_cs: int = 5000,
     hist_cx: int = 10000,
     device_budget_bytes: int | None = None,
+    group=None,
 ) -> Dict[str, str]:
     """pivots: {num: pivot record seqs}; rest_of_set excludes the pivot
     (exp2 is always out-pivot: input_type_2 copies exp0_nonpivot_genomes).
     Every sweep and per-k table op runs on `device`, within
-    `device_budget_bytes` (default ~85% of the device).  Returns
-    {"within": csv, "across": csv}."""
+    `device_budget_bytes` (default ~85% of the device).  With `group` (a
+    dist/mesh.py KvGroup) every rank calls run_exp2 with the same
+    arguments, the sweeps run over the ranks, and rank 0 alone runs the
+    per-k table ops of the ks they leave over and writes the files.
+    Returns {"within": csv, "across": csv}."""
+    def sweep(single, sharded, *args):
+        """A shared-sort sweep on `device`, or over the group's ranks."""
+        if group is None:
+            return single(*args, cs=union_cs, device=device,
+                          device_budget_bytes=device_budget_bytes)
+        return sharded(group, *args, cs=union_cs, device_budget_bytes=device_budget_bytes)
+
     eng = KmerEngine(device, device_budget_bytes)
     nums = sorted(rest_of_set)
     D = len(nums)
@@ -108,10 +122,8 @@ def run_exp2(
     # WITHIN scope: per dataset, one shared sort serves the whole grid
     fallback_within = set()
     for num in nums:
-        counts, rem = pivot_rest_counts_sweep(
-            [pivot_codes[num]] + rest_codes[num], k_values, cs=union_cs, device=device,
-            device_budget_bytes=device_budget_bytes,
-        )
+        counts, rem = sweep(kc.pivot_rest_counts_sweep, dkc.sharded_pivot_rest_counts_sweep,
+                            [pivot_codes[num]] + rest_codes[num], k_values)
         for k, cnt in counts.items():
             within[(num, k)] = _hists_from_counts(cnt, hist_cx)
         fallback_within.update(rem)
@@ -122,13 +134,17 @@ def run_exp2(
     members_across = [pivot_codes[num] for num in nums] + [
         group_codes[num] for num in nums
     ]
-    counts_across, rem_across = multi_pivot_counts_sweep(
-        members_across, D, k_values, cs=union_cs, device=device,
-        device_budget_bytes=device_budget_bytes,
-    )
+    counts_across, rem_across = sweep(kc.multi_pivot_counts_sweep,
+                                      dkc.sharded_multi_pivot_counts_sweep,
+                                      members_across, D, k_values)
     for k, cnt in counts_across.items():
         for i, num in enumerate(nums):
             across[(num, k)] = _hists_from_counts(cnt[i], hist_cx)
+
+    within_csv = os.path.join(out_dir, "within_dataset_analysis_type_2/within_dataset_analysis.csv")
+    across_csv = os.path.join(out_dir, "across_dataset_analysis_type_2/across_dataset_analysis.csv")
+    if group is not None and group.rank != 0:  # rank 0 writes
+        return {"within": within_csv, "across": across_csv}
 
     # the per-k path (small grids, datasets over the mask): table ops
     for k in sorted(fallback_within):
@@ -178,7 +194,6 @@ def run_exp2(
                 [f"group_{num}", str(k)]
                 + summarize_histogram_type2(sub_h, int_h, num_members[num], False, int(k))
             )
-    within_csv = os.path.join(out_dir, "within_dataset_analysis_type_2/within_dataset_analysis.csv")
     _normalize_and_write(within_csv, WITHIN_HEADER, rows, [f"group_{n}" for n in nums])
 
     # across CSV
@@ -190,7 +205,6 @@ def run_exp2(
                 [f"group_{num}", str(k)]
                 + summarize_histogram_type2(sub_h, int_h, len(nums), True, int(k))
             )
-    across_csv = os.path.join(out_dir, "across_dataset_analysis_type_2/across_dataset_analysis.csv")
     _normalize_and_write(across_csv, ACROSS_HEADER, rows, [f"group_{n}" for n in nums])
 
     return {"within": within_csv, "across": across_csv}

@@ -11,8 +11,10 @@ group union is reported:
 rounded to 4 (reference exp_type_3.smk:281-320).  The query read sets and
 the group unions share ONE doubled-text sort for the whole k grid
 (engine/ksweep_classify.py); the ks the plan cannot serve (a class of
-< 3 ks) take the JAX package's per-k table ops over a KmerEngine.  Row
-order: read_type outer, then pivot, k, dataset (exp_type_3.smk:103-113).
+< 3 ks) take the JAX package's per-k table ops over a KmerEngine.  With a
+key-range group (`group`, the JAX package's `mesh`) the sweep runs sharded
+over its ranks (dist/ksweep_classify.py).  Row order: read_type outer,
+then pivot, k, dataset (exp_type_3.smk:103-113).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from ..dist.ksweep_classify import sharded_containment_counts_sweep
 from ..engine.ksweep_classify import containment_counts_sweep
 from ..engine.session import KmerEngine
 from ..io.packing import encode_records
@@ -58,12 +61,16 @@ def run_exp3(
     device,
     union_cs: int = 5000,
     device_budget_bytes: int | None = None,
+    group=None,
 ) -> str:
     """reads: {(read_type, pivot_num): [read strings]} (see
     simulate_exp3_reads); rest_of_set excludes each pivot (out-pivot).
     The sweep and the per-k table ops run on `device`, within
-    `device_budget_bytes` (default ~85% of the device).  Returns the CSV
-    path."""
+    `device_budget_bytes` (default ~85% of the device).  With `group` (a
+    dist/mesh.py KvGroup) every rank calls run_exp3 with the same
+    arguments, the sweep runs over the ranks, and rank 0 alone runs the
+    per-k table ops of the ks it leaves over and writes the CSV.  Returns
+    the CSV path."""
     eng = KmerEngine(device, device_budget_bytes)
     nums = sorted(rest_of_set)
     read_types = sorted({rt for rt, _ in reads}, key=lambda r: ("illumina", "ont").index(r))
@@ -75,10 +82,19 @@ def run_exp3(
     member_codes = [encode_records(reads[q]) for q in qkeys] + [
         encode_records([s for g in rest_of_set[num] for s in g]) for num in nums
     ]
-    counts, fallback_ks = containment_counts_sweep(
-        member_codes, len(qkeys), len(nums), k_values, cs=union_cs, device=device,
-        device_budget_bytes=device_budget_bytes,
-    )
+    if group is None:
+        counts, fallback_ks = containment_counts_sweep(
+            member_codes, len(qkeys), len(nums), k_values, cs=union_cs, device=device,
+            device_budget_bytes=device_budget_bytes,
+        )
+    else:
+        counts, fallback_ks = sharded_containment_counts_sweep(
+            group, member_codes, len(qkeys), len(nums), k_values, cs=union_cs,
+            device_budget_bytes=device_budget_bytes,
+        )
+    csv = os.path.join(out_dir, "final_analysis_type3/final_analysis_type3.csv")
+    if group is not None and group.rank != 0:  # rank 0 writes
+        return csv
 
     results = {}
     for k, cnt in counts.items():
@@ -114,6 +130,5 @@ def run_exp3(
         for num in nums
     ]
 
-    csv = os.path.join(out_dir, "final_analysis_type3/final_analysis_type3.csv")
     write_csv_rows(csv, HEADER, rows)
     return csv

@@ -13,7 +13,9 @@ pivot multiplicities ride the presence-mask scan as a segmented sum,
 engine/ksweep_classify.py).  The ks the plan cannot serve (a class of
 < 3 ks) take the JAX package's per-(pivot, k) annotation: the pivot's
 count table annotated against every dataset's group set in one sort
-(classify/annotate.py), over a KmerEngine.
+(classify/annotate.py), over a KmerEngine.  With a key-range group
+(`group`, the JAX package's `mesh`) each pivot's sweep runs sharded over
+its ranks (dist/ksweep_classify.py).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..classify.confusion import (
     write_accuracy_csv,
     write_confusion_matrix,
 )
+from ..dist.ksweep_classify import sharded_feature_buckets_sweep
 from ..engine.ksweep_classify import feature_buckets_sweep
 from ..engine.session import KmerEngine
 from ..io.packing import encode_records
@@ -48,11 +51,15 @@ def run_exp4(
     count_cs: int = 255,
     union_cs: int = 5000,
     device_budget_bytes: int | None = None,
+    group=None,
 ) -> str:
     """pivots: {num: pivot record seqs}; rest_of_set: {num: [genome,...]}
     (with the pivot already included per dataset when doing in-pivot).
     Every sweep runs on `device`, within `device_budget_bytes` (default
-    ~85% of the device).
+    ~85% of the device).  With `group` (a dist/mesh.py KvGroup) every rank
+    calls run_exp4 with the same arguments, the sweeps run over the ranks,
+    and rank 0 alone runs the per-k annotation of the ks they leave over
+    and writes the files.
 
     Writes accuracies_type_4/{confusion_matrix,values}/ and the
     concatenated accuracy_values.csv; returns the concatenated path."""
@@ -67,10 +74,19 @@ def run_exp4(
     ]
     swept: Dict[int, dict] = {}
     for num in nums:
-        swept[num], _ = feature_buckets_sweep(
-            [pivot_codes[num]] + group_codes, d, k_values, cap=count_cs,
-            cs=union_cs, device=device, device_budget_bytes=device_budget_bytes,
-        )
+        if group is None:
+            swept[num], _ = feature_buckets_sweep(
+                [pivot_codes[num]] + group_codes, d, k_values, cap=count_cs,
+                cs=union_cs, device=device, device_budget_bytes=device_budget_bytes,
+            )
+        else:
+            swept[num], _ = sharded_feature_buckets_sweep(
+                group, [pivot_codes[num]] + group_codes, d, k_values, cap=count_cs,
+                cs=union_cs, device_budget_bytes=device_budget_bytes,
+            )
+    final = os.path.join(acc_dir, "accuracy_values.csv")
+    if group is not None and group.rank != 0:  # rank 0 writes
+        return final
 
     for k in k_values:
         if k not in swept[nums[0]]:  # the per-k path: every pivot's plan is the same
@@ -103,7 +119,6 @@ def run_exp4(
             accuracy_values(cm_ucol, d, str(k)),
         )
 
-    final = os.path.join(acc_dir, "accuracy_values.csv")
     with open(final, "w") as out_fd:
         for k in glob_lexicographic(k_values):
             with open(os.path.join(acc_dir, f"values/k_{k}_accuracy_values.csv")) as fd:

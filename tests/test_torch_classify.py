@@ -287,7 +287,7 @@ def test_trials_use_the_jax_clis_work_roots(database, tmp_path, monkeypatch, exp
     import khoice_tpu.cli as jcli
 
     roots = {"port": [], "jax": []}
-    monkeypatch.setattr(tcli, "_run_one", lambda cfg, args, db, device, exp0_root: roots[
+    monkeypatch.setattr(tcli, "_run_one", lambda cfg, args, db, device, exp0_root, group: roots[
         "port"].append((cfg.curr_trial, cfg.work_root, exp0_root)) or 0)
     monkeypatch.setattr(jcli, "_run_one", lambda cfg, args, db, exp0_root: roots[
         "jax"].append((cfg.curr_trial, cfg.work_root, exp0_root)) or 0)

@@ -103,12 +103,12 @@ def test_cli_exp1_on_cpu_and_unported_exp_types(rng, tmp_path):
     assert len(step5.strip().split("\n")) == 1 + 2 * 4
     assert len(step9.strip().split("\n")) == 1 + 4
 
-    # what is not ported yet (the sharded sweep) and what does not exist
-    # exit non-zero before any work
+    # a sharded run outside torchrun (no process per rank) and what does
+    # not exist exit non-zero before any work
     proc = _cli("--exp-type", "1", "--device", "cpu", "--database-root", str(db),
                 "--work-root", str(tmp_path / "w2"), "--mesh-shards", "2")
     assert proc.returncode != 0
-    assert "python -m khoice_tpu" in proc.stderr and "not ported" in proc.stderr
+    assert "torchrun --nproc-per-node 2" in proc.stderr
     proc = _cli("--exp-type", "9", "--device", "cpu", "--database-root", str(db),
                 "--work-root", str(tmp_path / "w9"))
     assert proc.returncode != 0 and "unknown exp type 9" in proc.stderr

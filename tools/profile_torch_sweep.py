@@ -2,7 +2,7 @@
 """Where the port's time goes on a CUDA device.
 
     python tools/profile_torch_sweep.py [--db DATABASE_ROOT] [--exp-types 1,2,3,4]
-                                        [--kmers-per-dataset N] [--out DIR]
+                                        [--kmers-per-dataset N] [--out DIR] [--sharded]
 
 1. The shared-sort sweep at the bench shape (8 members x 2^21 random
    bases, the 30-point grid, one packed KW=4 class), stage by stage with
@@ -18,6 +18,11 @@
    device-busy share: the union of the trace's kernel, memcpy and memset
    intervals over the wall (overlaps counted once).  --out also keeps
    the chrome traces there.
+3. With --db and --sharded: `run_exp1` on the database's groups (read
+   once, before the runs) on one device and over a key-range group of one
+   rank on NCCL (dist/), in turns (single, sharded, sharded, single),
+   each under torch.profiler as in 2; the group is made, and NCCL's
+   first collective run, before the first turn.
 
 Prints the card's name and power limit first and one JSON line last.
 """
@@ -135,14 +140,16 @@ def device_busy_us(trace_events) -> dict:
     return {"busy_us": busy, "sum_us": sum(e - s for s, e in spans), "events": len(spans)}
 
 
-def exp_profile(argv: list, label: str, out_dir: str | None) -> dict:
+def exp_profile(argv, label: str, out_dir: str | None) -> dict:
+    """Profile one run: `cli.main(argv)`, or argv() when it is a callable."""
     from torch.profiler import ProfilerActivity, profile
 
     from khoice_tpu_torch import cli
 
+    run = argv if callable(argv) else (lambda: cli.main(argv))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if cli.main(argv) != 0:
+        if run() != 0:
             raise SystemExit(f"{label} failed")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -160,6 +167,40 @@ def exp_profile(argv: list, label: str, out_dir: str | None) -> dict:
             "device_event_sum_s": dev["sum_us"] / 1e6, "device_events": dev["events"]}
 
 
+def sharded_profiles(db: str, out_dir: str | None) -> dict:
+    """exp1 on one device and over a one-rank NCCL group, in turns."""
+    import torch.distributed as dist
+
+    from khoice_tpu_torch.dist.mesh import init_kv_group
+    from khoice_tpu_torch.pipelines.exp0 import load_database_dir
+    from khoice_tpu_torch.pipelines.exp1 import run_exp1
+
+    loaded = load_database_dir(db)
+    groups = {num: [loaded[num][n] for n in sorted(loaded[num])] for num in loaded}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        group = init_kv_group("cuda", world_size=1)
+        dist.all_reduce(torch.zeros(1, device=group.device))
+        torch.cuda.synchronize()
+        out["nccl_setup_s"] = time.perf_counter() - t0
+        try:
+            for turn, sharded in enumerate((False, True, True, False)):
+                label = f"exp1_{'sharded' if sharded else 'single'}_{turn}"
+
+                def run(sharded=sharded, label=label):
+                    run_exp1(groups, K_GRID, os.path.join(tmp, label), "cuda",
+                             group=group if sharded else None)
+                    return 0
+
+                out[label] = exp_profile(run, label, out_dir)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--db", default=None, help="database root for the experiment profiles")
@@ -168,6 +209,8 @@ def main():
                     help="31-mer budget of exp0's and exp3's simulated read sets")
     ap.add_argument("--out", default=None, help="directory for the chrome traces")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--sharded", action="store_true",
+                    help="with --db: exp1 on one device and over a one-rank NCCL group")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -190,6 +233,8 @@ def main():
             for t in exp_types:
                 result[f"exp{t}"] = exp_profile(["run", "--exp-type", str(t), *common],
                                                 f"exp{t}", args.out)
+        if args.sharded:
+            result["sharded"] = sharded_profiles(args.db, args.out)
     print(json.dumps(result))
 
 
