@@ -36,7 +36,10 @@ Phases (any failure raises, so the exit code is non-zero):
        pivot counts above 511) plus a 63-member containment; each mode's
        time over its bound at the bench shape is printed;
      - the extraction kernel (A) on 2^24 codes with N runs, k in
-       {7, 15, 16, 31, 32, 49, 63}, keys and the gid-packed form;
+       {7, 15, 16, 31, 32, 49, 63}, keys and the gid-packed form, and at
+       the size of a call of exp1's table ops (2.0M codes, k in {7, 15,
+       21, 31, 49}) with the profiler's device time beside the wrapper's
+       span;
      - the occurrence-histogram kernel, packed (B), on the sorted words of
        96 members x 2^20 at k = 31 and 49 (one member with a poly-A
        tract, so runs cross tiles), and unpacked (C) on 300 members x
@@ -126,7 +129,18 @@ Phases (any failure raises, so the exit code is non-zero):
      d. exp1's sharded sweep of 4a's group 1 over the 30 ks on two gloo
         ranks, both on cuda:0 (dist/launch.py::run_ranks; gloo takes CUDA
         tensors), every rank's histograms equal to 6a's step_4 files,
-        every kernel call of each rank held.
+        every kernel call of each rank held;
+     e. `run_exp6(..., group=g)` on 4a's exp0 over the 30 ks, both read
+        types (dist/vote.py: per rank kernel A, one stable sort, vote_mask
+        and read_votes per k), every trial and per-k file byte-equal to
+        4a's single-device exp6; every A, sort, vote_mask and read_votes
+        call at one k per key-word class (HOLD_6E) held;
+     f. two processes, each started alone as on its own host (env://,
+        MASTER_ADDR 127.0.0.1, gloo, both on cuda:0), run
+        `multihost_read_votes_multi` (exp6's datasets with exp0's
+        Illumina reads) and `multihost_occurrence_histograms_sweep` (4a's
+        group 1) at k 11, 21, 33 and 49 (dist/multihost.py), every kernel
+        call held; both must equal the single-device votes and histograms.
      Each run's launches are counted from 0 and added to the kernels
      line's.  Phase 2 also asserts that the native FASTA scanner loaded.
 The last two lines are the kernels' JSON record and
@@ -161,6 +175,8 @@ VOTE_SOURCE = "khoice_tpu_torch/csrc/vote.cu"
 SORT_HOLDS = 3  # sorts of each 4a/4b run held against the plain sort
 STREAM_HOLDS = 2  # chunk sorts of each 4c run held against the plain sort
 SORT_RUN = "exp1 streamed on 2 x 96 x 1 Mbp"  # the run whose sort launches are reported
+HOLD_6E = (15, 31, 49)  # one k per key-word class: 6e's held calls
+MULTIHOST_KS = (11, 21, 33, 49)  # 6f's ks
 MODES = ("pivot_rest", "multi_pivot", "containment", "buckets")
 CSVS = {  # each experiment's CSVs under its work root
     1: ("step_5/within_datasets_analysis.csv", "step_9/across_datasets_analysis.csv"),
@@ -521,8 +537,17 @@ def perk_kernels_vs_plain(rng, members96):
                                 lambda: extract.extract_packed(codes, gids, k),
                                 lambda: extract.extract_packed_reference(codes, gids, k),
                                 (codes, gids))["max_abs_err"])
-    results["A"]["max_abs_err"] = max(errs)
     del codes, gids
+    # exp1's table ops call A once per genome and k (<= 2.0M codes): the
+    # wrapper's span beside the kernel's device time (the profiler's)
+    small = torch.from_numpy(random_members(np.random.default_rng(12), 1, 2_000_000)[0]).to(dev)
+    for k in (7, 15, 21, 31, 49):
+        errs.append(compare(f"A extract_canonical n=2.0M (a table op's call) k={k}",
+                            lambda: extract.extract_canonical(small, k),
+                            lambda: extract.extract_canonical_reference(small, k), (small,),
+                            profiled="extract_kernel")["max_abs_err"])
+    results["A"]["max_abs_err"] = max(errs)
+    del small
 
     codes, gids = pack_members(members96, dev)
     errs = []
@@ -799,6 +824,7 @@ def kernel_specs(scan_plain):
     from khoice_tpu_torch.classify import annotate
     from khoice_tpu_torch.dist import ksweep as dksweep
     from khoice_tpu_torch.dist import occurrence as doccurrence
+    from khoice_tpu_torch.dist import vote as dvote
     from khoice_tpu_torch.engine import ksweep, ksweep_classify, occurrence, ops, streaming
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
     from khoice_tpu_torch.kernels import sort as ksort
@@ -818,6 +844,7 @@ def kernel_specs(scan_plain):
         (doccurrence, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (ops, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (annotate, "extract_canonical", "A keys", extract.extract_canonical_reference),
+        (dvote, "extract_canonical", "A keys", extract.extract_canonical_reference),
         (occurrence, "occ_hist_packed", "B", occ_scan.occ_hist_packed_reference),
         (doccurrence, "occ_hist_packed", "B", occ_scan.occ_hist_packed_reference),
         (occurrence, "occ_hist", "C", occ_scan.occ_hist_reference),
@@ -825,7 +852,8 @@ def kernel_specs(scan_plain):
         (kvote, "vote_mask", "vote_mask", kvote.vote_mask_reference),
         (kvote, "read_votes", "read_votes", kvote.read_votes_reference),
     ] + [(module, "sort_words", "sort", ksort.sort_words_reference)
-         for module in (ksweep, streaming, occurrence, ops, annotate, dksweep, doccurrence)]
+         for module in (ksweep, streaming, occurrence, ops, annotate, dksweep, doccurrence,
+                        dvote)]
 
 
 def reset_counts():
@@ -1808,11 +1836,197 @@ def sharded_paths(tmp, db, work1, work, csv30, db96):
 
         c, e, st = sharded_tables(group, db, db96)
         add("6c tables and occurrence", c, e, st)
+
+        c, e, st = sharded_exp6(tmp, group, db, work)
+        add("6e exp6", c, e, st)
     finally:
         dist.destroy_process_group()
     c, e = two_ranks_one_card(db, out1)
     add("6d two ranks on one card", c, e, None)
+    c, e = multihost_paths(tmp, db, work)
+    add("6f two processes, env://", c, e, None)
     return launches, errors, stats
+
+
+def sharded_exp6(tmp, group, db, work):
+    """6e: `run_exp6(..., group=group)` over the 30 ks, both read types, on
+    the exp0 in `work` (pivots, rest of set and reads, as the CLI builds
+    them); every file byte-equal to the single-device exp6 in `work`, and
+    every A, sort, vote_mask and read_votes call at HOLD_6E held against
+    its plain version.  Returns run_path's counts, errors and stats."""
+    from khoice_tpu_torch import cli
+    from khoice_tpu_torch.config import KhoiceConfig
+    from khoice_tpu_torch.pipelines.exp0 import load_database_dir
+    from khoice_tpu_torch.pipelines.exp6 import READ_TYPE_LABEL, run_exp6
+
+    cfg = KhoiceConfig(kmers_per_dataset=2000000)
+    loaded = load_database_dir(db)
+    exp0 = cli._load_exp0(cfg, loaded, work)
+    pivots = {num: loaded[num][exp0["pivots"][num]] for num in loaded}
+    rest = {num: [loaded[num][n] for n in exp0["nonpivots"][num]]
+            + ([] if cfg.out_pivot else [pivots[num]]) for num in loaded}
+    out6 = os.path.join(tmp, "sharded_exp6")
+
+    def exp6():
+        for rt in READ_TYPE_LABEL:
+            reads_rt = {num: exp0["reads"][(num, rt)] for num in loaded}
+            run_exp6(reads_rt, rest, K_GRID, out6, "cuda", read_type=rt, trial=cfg.curr_trial,
+                     seed=cfg.seed, group=group)
+        return 0
+
+    c, e, _, st = run_path(
+        "6e exp6 sharded (1 rank, NCCL), 30 ks, both read types", exp6,
+        lambda kernel, k, nth: k in HOLD_6E and kernel in ("A keys", "sort", "vote_mask",
+                                                           "read_votes"),
+        ["A", "vote_mask", "read_votes"],
+        {os.path.join(out6, f"trial_1_{lab}_acc.csv"): 1 + len(K_GRID) * len(loaded)
+         for lab in READ_TYPE_LABEL.values()}, per_call=())
+    same_bytes("6e exp6", [(os.path.join(out6, rel), read_bytes(os.path.join(work, rel)))
+                           for rel in exp6_files()])
+    print(f"6e: {len(exp6_files())} files (both trial CSVs, every per-k matrix and accuracy "
+          f"file) byte-equal to the single-device exp6's; every A, sort, vote_mask and "
+          f"read_votes call at k in {HOLD_6E} held against its plain version, equal",
+          flush=True)
+    return c, e, st
+
+
+def exp6_files():
+    """exp6's files under a work root: both trial CSVs, and each read
+    type's matrices and accuracy values at every k."""
+    from khoice_tpu_torch.pipelines.exp6 import READ_TYPE_LABEL
+
+    rels = [f"trial_1_{lab}_acc.csv" for lab in READ_TYPE_LABEL.values()]
+    for rt in READ_TYPE_LABEL:
+        for k in K_GRID:
+            rels += [f"accuracies_type_6/{rt}/confusion_matrix/k_{k}_confusion_matrix.txt",
+                     f"accuracies_type_6/{rt}/confusion_matrix/"
+                     f"k_{k}_confusion_matrix_with_unidentified.txt",
+                     f"accuracies_type_6/{rt}/values/k_{k}_accuracy_values.csv"]
+    return rels
+
+
+def multihost_inputs(db, work):
+    """6f's inputs, as every process builds them from the files: 4a's group 1
+    (8 genomes) for the sweep, and exp6's datasets (each one's rest of set)
+    with exp0's Illumina reads (4a's work root) for the votes."""
+    from khoice_tpu_torch import cli
+    from khoice_tpu_torch.config import KhoiceConfig
+    from khoice_tpu_torch.io.packing import encode_records
+    from khoice_tpu_torch.pipelines.exp0 import load_database_dir
+    from khoice_tpu_torch.pipelines.exp6 import reads_matrix
+
+    cfg = KhoiceConfig(kmers_per_dataset=2000000)
+    loaded = load_database_dir(db)
+    exp0 = cli._load_exp0(cfg, loaded, work)
+    nums = sorted(loaded)
+    members = [encode_records(loaded[1][n]) for n in sorted(loaded[1])]
+    texts = [encode_records([s for name in exp0["nonpivots"][num] + [exp0["pivots"][num]]
+                             for s in loaded[num][name]]) for num in nums]
+    mats = [reads_matrix(exp0["reads"][(num, "illumina")]) for num in nums]
+    return members, texts, mats
+
+
+def multihost_rank(rank, port, db, work, out):
+    """6f's rank program: one of two processes started alone, as on two
+    hosts (env://: MASTER_ADDR 127.0.0.1, RANK, WORLD_SIZE 2, LOCAL_RANK 0),
+    in a gloo group on cuda:0; it runs multihost_read_votes_multi and
+    multihost_occurrence_histograms_sweep at MULTIHOST_KS, every kernel call
+    held against its plain version, and pickles (votes, histograms,
+    launches, each kernel's largest difference, wall) to `out`."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from khoice_tpu_torch.dist import multihost as mh
+    from khoice_tpu_torch.dist.mesh import init_kv_group
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=rank, WORLD_SIZE="2",
+                      LOCAL_RANK="0")
+    dist.init_process_group("gloo", init_method="env://")
+    group = init_kv_group("cuda", world_size=2)
+    members, texts, mats = multihost_inputs(db, work)
+    with Held(kernel_specs(True), lambda kernel, k, nth: True) as held:
+        reset_counts()
+        t0 = time.perf_counter()
+        votes = mh.multihost_read_votes_multi(group, texts, mats, MULTIHOST_KS)
+        hists = mh.multihost_occurrence_histograms_sweep(group, members, MULTIHOST_KS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - held.plain_s
+        counts = read_counts()
+    dist.destroy_process_group()
+    with open(out, "wb") as fd:
+        pickle.dump((votes, hists, counts, held.errors, wall), fd)
+
+
+def multihost_paths(tmp, db, work):
+    """6f: two processes, each started alone with env:// on gloo and on
+    cuda:0 (multihost_rank), run multihost_read_votes_multi and
+    multihost_occurrence_histograms_sweep on 4a's inputs at MULTIHOST_KS;
+    both must equal the single-device votes (read_votes_bulk_multi) and
+    histograms (occurrence_histograms_sweep) on the card.  Returns the
+    launches summed over the processes and each kernel's largest
+    difference."""
+    import pickle
+    import socket
+
+    from khoice_tpu_torch.classify import annotate
+    from khoice_tpu_torch.engine.ksweep import occurrence_histograms_sweep
+
+    torch.cuda.empty_cache()  # the processes need the card this one has cached
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = str(sock.getsockname()[1])
+    sock.close()
+    outs = [os.path.join(tmp, f"multihost_{r}.pkl") for r in range(2)]
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-rank",
+                               str(r), port, db, work, outs[r]], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"6f process {r} exited with {p.returncode}:\n{log[-4000:]}")
+    members, texts, mats = multihost_inputs(db, work)
+    want_h = occurrence_histograms_sweep(members, list(MULTIHOST_KS), "cuda")
+    group = annotate.pack_group_texts(texts, "cuda")
+    big, spans = annotate.concat_flat_reads([annotate.flat_reads_device(m, "cuda") for m in mats])
+    want_v = {k: annotate.read_votes_bulk_multi(group, big, spans, k, len(texts))
+              for k in MULTIHOST_KS}
+    del group, big
+    launches, errors = {}, {}
+    for r, out in enumerate(outs):
+        with open(out, "rb") as fd:
+            votes, hists, counts, errs, wall = pickle.load(fd)
+        for k in MULTIHOST_KS:
+            if hists[k] != want_h[k] or not any(want_h[k]):
+                raise AssertionError(f"6f process {r} k={k}: histogram differs")
+            for got, want in zip(votes[k], want_v[k]):
+                if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"6f process {r} k={k}: votes differ")
+        for kernel in ("sort", "A", "vote_mask", "read_votes"):
+            if counts[kernel] < 1:
+                raise AssertionError(f"6f process {r} never launched the {kernel} kernel")
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+        merge(errs, errors)
+        print(f"6f process {r}: wall {wall:.2f} s (plain checks excluded), launches "
+              f"{ {k: v for k, v in counts.items() if v} }, every kernel call held, equal",
+              flush=True)
+    print(f"6f: two processes (env://, gloo, both on cuda:0): multihost_read_votes_multi and "
+          f"multihost_occurrence_histograms_sweep at k {MULTIHOST_KS} equal the single-device "
+          f"votes and histograms in both; {time.perf_counter() - t0:.1f} s with the processes' "
+          f"start ({smi_line()})", flush=True)
+    return launches, errors
 
 
 def sharded_tables(group, db, db96):
@@ -1904,6 +2118,9 @@ def kernel_record(name, source, replaces, launches, r, library_ms=None):
 
 
 def main():
+    if sys.argv[1:2] == ["--multihost-rank"]:  # a process of 6f (multihost_paths)
+        multihost_rank(*sys.argv[2:7])
+        return
     t_all = time.perf_counter()
     walls = {}
     device_check()
@@ -1954,7 +2171,7 @@ def main():
         # each kernel's record adds phase 6's runs, each counted from 0
         for kernel in launches:
             launches[kernel] += sharded_launches.get(kernel, 0)
-        print(f"phase 6's launches (6a + 6b + 6c + 6d's two ranks): "
+        print(f"phase 6's launches (6a + 6b + 6c + 6d's two ranks + 6e + 6f's two processes): "
               f"{ {k: v for k, v in sharded_launches.items() if v} }; the kernels line adds "
               f"them to phase 4/5's", flush=True)
     for kernel, err in errors.items():

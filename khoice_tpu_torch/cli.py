@@ -7,11 +7,13 @@ grid (groups of more than 64 genomes and small grids take the per-k
 fused path); exp0 and the MEM experiments exp5, 7 and 8 on the host, as
 the JAX package does, so they take no device.  exp1-4 run sharded over a
 key-range group of N ranks when `mesh_shards` (the flag or the config's)
-is N > 1, one process per rank on its own device:
+is N > 1, one process per rank on its own device, and so does exp6's
+read voting:
 
-    torchrun --nproc-per-node N -m khoice_tpu_torch run --exp-type 1 --mesh-shards N ...
+    torchrun --nproc-per-node N -m khoice_tpu_torch run --exp-type 6 --mesh-shards N ...
 
-(exp6's sharded votes are not ported yet).  Inputs follow the reference database layout
+(over several hosts, `torchrun --nnodes H --nproc-per-node N/H
+--rdzv-endpoint HOST:PORT ...`).  Inputs follow the reference database layout
 (`database_root/dataset_{i}/*.fna.gz`) and exp0's trial_{t}/ layout;
 outputs land under --work-root with the reference's directory names, and
 a stage whose outputs exist is skipped (runtime/driver.py) unless --force.
@@ -36,7 +38,7 @@ log = get_logger("khoice.cli")
 
 EXP_TYPES = (0, 1, 2, 3, 4, 5, 6, 7, 8)
 HOST_EXP_TYPES = (0, 5, 7, 8)  # they run nothing on a device
-SHARDED_EXP_TYPES = (1, 2, 3, 4)  # mesh_shards > 1 runs them over a key-range group
+SHARDED_EXP_TYPES = (1, 2, 3, 4, 6)  # mesh_shards > 1 runs them over a key-range group
 
 
 def _device(name: str) -> torch.device:
@@ -106,11 +108,6 @@ def cmd_run(args) -> int:
     if cfg.exp_type not in EXP_TYPES:
         raise SystemExit(f"unknown exp type {cfg.exp_type}")
     sharded = cfg.mesh_shards > 1 and cfg.exp_type in SHARDED_EXP_TYPES
-    if cfg.mesh_shards > 1 and cfg.exp_type == 6:
-        raise SystemExit(
-            "mesh_shards > 1 with exp 6 (its sharded read votes, khoice_tpu/dist/vote.py) "
-            "is not ported to khoice_tpu_torch yet; run exp 6 with mesh_shards 1"
-        )
     if sharded:
         _check_launch(cfg.mesh_shards, args.device)
     elif cfg.mesh_shards > 1:
@@ -307,9 +304,10 @@ def _run_one(cfg: KhoiceConfig, args, db, device, exp0_root: str, group=None) ->
                                           f"trial_{cfg.curr_trial}_{READ_TYPE_LABEL[rt]}_acc.csv")],
                     fn=(lambda reads_rt=reads_rt, rt=rt: run_exp6(
                         reads_rt, rest, cfg.k_values, cfg.work_root, device, read_type=rt,
-                        trial=cfg.curr_trial, seed=cfg.seed, device_budget_bytes=budget)),
+                        trial=cfg.curr_trial, seed=cfg.seed, device_budget_bytes=budget,
+                        group=group)),
                 ))
-            driver.run(stages)
+            _run_stages(driver, stages, group)
         elif et == 5:
             from .pipelines.exp5 import run_exp5
 
@@ -389,7 +387,7 @@ def main(argv=None) -> int:
                        help="31-mer budget of the read sets exp0 and exp3 simulate "
                             "(ignored by exp1)")
     run_p.add_argument("--mesh-shards", type=int, default=None,
-                       help="ranks of the k-mer key-range group for exp 1-4 (default 1: one "
+                       help="ranks of the k-mer key-range group for exp 1-4 and 6 (default 1: one "
                             "device); N > 1 needs N processes, one per device: launch with "
                             "`torchrun --nproc-per-node N -m khoice_tpu_torch run ... "
                             "--mesh-shards N` (NCCL on CUDA, one card per rank; gloo with "

@@ -1,8 +1,8 @@
 """The key-range SPMD path on torch.distributed (port of khoice_tpu/dist/:
-mesh.py, sharded.py, occurrence.py, ksweep.py, ksweep_classify.py; the
-port's own launch.py starts a group's ranks in one call).  exp6's sharded
-votes (vote.py) and the multi-host entry points (multihost.py) are not
-ported yet."""
+mesh.py, sharded.py, occurrence.py, ksweep.py, ksweep_classify.py, exp6's
+sharded votes in vote.py and the multi-process entry points in
+multihost.py; the port's own launch.py starts a group's ranks in one
+call).  The names exported are the JAX package's."""
 
 from .mesh import make_mesh, split_keys_for
 from .occurrence import sharded_occurrence_histogram

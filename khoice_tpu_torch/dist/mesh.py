@@ -13,9 +13,12 @@ is globally sorted.  NCCL serves CUDA devices, gloo the CPU.
 (after checking its world size), else initialises it from the `torchrun`
 environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT).
 Each rank takes the card `cuda:{LOCAL_RANK}`; two ranks are never mapped
-onto one card behind the caller's back.  The JAX package's
-`init_multihost` (jax.distributed) has no counterpart yet: every rank of a
-torch.distributed group is already its own process.
+onto one card behind the caller's back.  `init_multihost` is the JAX
+package's (jax.distributed.initialize, then the global mesh): the same
+env:// initialisation, with the coordinator, process count and process id
+given as arguments where the environment lacks them; every rank of a
+torch.distributed group is its own process, on one host or several
+(dist/multihost.py).
 
 The split keys (`split_keys_for`) are the JAX package's uniform-CDF
 quantiles, numpy only, copied: canonical keys are min(fwd, rc) of two
@@ -118,9 +121,10 @@ def rank_device(device, local_rank: int) -> torch.device:
 
 def init_kv_group(device="cuda", world_size: int | None = None) -> KvGroup:
     """This process's KvGroup on the default process group: the one already
-    initialised (its world size checked against `world_size`), or one
-    initialised here from the torchrun environment, on NCCL for CUDA and
-    gloo for the CPU."""
+    initialised (its world size checked against `world_size`; gloo takes
+    CUDA tensors too, which lets ranks share a card), or one initialised
+    here from the torchrun environment (env://), on NCCL for CUDA and gloo
+    for the CPU."""
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
     dev = rank_device(device, local_rank)
     if not dist.is_initialized():
@@ -131,6 +135,24 @@ def init_kv_group(device="cuda", world_size: int | None = None) -> KvGroup:
     if world_size is not None and size != world_size:
         raise ValueError(f"the process group has {size} ranks, {world_size} were asked for")
     return KvGroup(rank=dist.get_rank(), world_size=size, device=dev)
+
+
+def init_multihost(coordinator_address: str | None = None, num_processes: int | None = None,
+                   process_id: int | None = None, device="cuda") -> KvGroup:
+    """The JAX package's init_multihost: this process's KvGroup over every
+    process of the job, from env:// (init_kv_group).  coordinator_address
+    ("host:port" of rank 0), num_processes and process_id, where given,
+    set MASTER_ADDR/MASTER_PORT, WORLD_SIZE and RANK; otherwise the
+    launcher's environment (torchrun) supplies them.  Call once per
+    process; see dist/multihost.py."""
+    if coordinator_address is not None:
+        host, port = coordinator_address.rsplit(":", 1)
+        os.environ.update(MASTER_ADDR=host, MASTER_PORT=port)
+    if num_processes is not None:
+        os.environ["WORLD_SIZE"] = str(num_processes)
+    if process_id is not None:
+        os.environ["RANK"] = str(process_id)
+    return init_kv_group(device)
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> KvGroup:

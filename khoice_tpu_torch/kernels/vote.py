@@ -46,7 +46,7 @@ def vote_mask_reference(words: torch.Tensor, payload: torch.Tensor, D: int,
     (payload gid < D) of e's key run, 0 for the SENTINEL run, whatever the
     order of the elements within the run."""
     out = torch.zeros(n_query, dtype=torch.int64, device=words.device)
-    if n_query == 0:
+    if n_query == 0 or words.shape[1] == 0:
         return out
     run = torch.cumsum(words_starts(words), 0) - 1
     text = payload < D
@@ -98,8 +98,8 @@ def _check_mask_args(words: torch.Tensor, payload: torch.Tensor, D: int, n_query
             or not payload.is_contiguous() or payload.device != words.device):
         raise ValueError("payload must be a contiguous int64 [n] on the words' device")
     check_datasets(D)
-    if not 0 <= n_query <= words.shape[1]:
-        raise ValueError(f"n_query={n_query} outside [0, n={words.shape[1]}]")
+    if n_query < 0:
+        raise ValueError(f"n_query={n_query} < 0")
 
 
 def _check_vote_args(qmask, valid, row_starts, D: int, lcm: int):
@@ -126,9 +126,11 @@ def vote_mask(words: torch.Tensor, payload: torch.Tensor, D: int, n_query: int) 
     """int64 [n_query] run masks of the merge-join: words int64 [W, n] and
     payload int64 [n] sorted STABLY by key from a concatenation with every
     text element (payload = its dataset gid < D) before every query
-    element (payload = D + its read position, each of 0..n_query - 1
-    once).  For each query, bit d is set iff a text element of dataset d
-    has its key; SENTINEL keys give 0.
+    element (payload = D + its read position, each of 0..n_query - 1 at
+    most once).  For each query, bit d is set iff a text element of
+    dataset d has its key; SENTINEL keys and the positions of queries
+    absent from the join give 0 (a rank of the sharded votes,
+    dist/vote.py, holds only some of the queries).
 
     The kernel's forward scan takes a query's value from the elements
     before it in its run, so it rests on that order (stable sort, texts
@@ -140,8 +142,8 @@ def vote_mask(words: torch.Tensor, payload: torch.Tensor, D: int, n_query: int) 
         return vote_mask_reference(words, payload, D, n_query)
     _device_check(words, "vote_mask")
     W, n = words.shape
-    out = torch.empty(n_query, dtype=torch.int64, device=words.device)
-    if n_query == 0:
+    out = torch.zeros(n_query, dtype=torch.int64, device=words.device)
+    if n_query == 0 or n == 0:
         return out
     lib = _build.load()
     with torch.cuda.device(words.device):

@@ -1,5 +1,5 @@
 """Experiment 6: read-level k-mer confusion matrix (port of
-khoice_tpu/pipelines/exp6.py, its single-device path).
+khoice_tpu/pipelines/exp6.py).
 
 Replaces workflow/rules/exp_type_6.smk + merge_lists.py -r: per
 (k, read_type), each pivot's simulated reads are voted against the
@@ -11,8 +11,10 @@ U-columns (exp_type_6.smk:349-362).
 
 Per k, ALL pivots' reads ride ONE merge-join sort with the group texts
 (classify/annotate.py::read_votes_bulk_multi), on `device`, each k's
-device bytes checked against the budget first.  The JAX package's mesh
-path (dist/vote.py) is not ported.
+device bytes checked against the budget first.  With a key-range group
+(`group`, the JAX package's `mesh`) the votes ride the sharded merge-join
+(dist/vote.py), equal to the single-device votes; every rank votes, and
+rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -62,31 +64,43 @@ def run_exp6(
     trial: int = 1,
     seed: int = 0,
     device_budget_bytes: int | None = None,
+    group=None,
 ) -> str:
     """pivot_reads: {num: [read strings]} (exp0 subset output);
-    rest_of_set: {num: [genome,...]}.  Every k's votes run on `device`,
-    within `device_budget_bytes` (default ~85% of the device).  Returns the
-    trial accuracy CSV path."""
+    rest_of_set: {num: [genome,...]}.  Every k's votes run on `device`, or
+    over `group`'s ranks (a dist/mesh.py KvGroup; every rank must hold the
+    same texts and reads), within `device_budget_bytes` (default ~85% of
+    the device).  Returns the trial accuracy CSV path."""
     nums = sorted(rest_of_set)
     d = len(nums)
     label = READ_TYPE_LABEL.get(read_type, read_type)
     acc_dir = os.path.join(out_dir, f"accuracies_type_6/{read_type}")
+    final = os.path.join(out_dir, f"trial_{trial}_{label}_acc.csv")
 
-    group = pack_group_texts(
-        [encode_records([s for g in rest_of_set[num] for s in g]) for num in nums], device)
-    big_flat, spans = concat_flat_reads(
-        [flat_reads_device(reads_matrix(pivot_reads[num]), device) for num in nums])
+    group_codes = [encode_records([s for g in rest_of_set[num] for s in g]) for num in nums]
+    read_mats = [reads_matrix(pivot_reads[num]) for num in nums]
+    if group is None:
+        texts = pack_group_texts(group_codes, device)
+        big_flat, spans = concat_flat_reads([flat_reads_device(m, device) for m in read_mats])
+
+        def votes_of(k):
+            return read_votes_bulk_multi(texts, big_flat, spans, k, d, device_budget_bytes)
+    else:
+        from ..dist.vote import sharded_read_votes_multi
+
+        votes_of = sharded_read_votes_multi(group, group_codes, read_mats, k_values,
+                                            device_budget_bytes=device_budget_bytes).get
+        if group.rank != 0:  # rank 0 writes
+            return final
     for k in k_values:
-        per_pivot = read_votes_bulk_multi(group, big_flat, spans, k, d, device_budget_bytes)
         cm = []
-        for num, (votes, _unmatched, _nk) in zip(nums, per_pivot):
+        for num, (votes, _unmatched, _nk) in zip(nums, votes_of(k)):
             rng = np.random.default_rng([seed, trial, k, num])
             cm.append(list(read_level_confusion_row(votes, d, rng)))
         # the regular and with-unidentified matrices take the SAME class
         # increments (reference merge_lists.py:182-183)
         _write_k_outputs(acc_dir, k, cm, [list(row) for row in cm], d)
 
-    final = os.path.join(out_dir, f"trial_{trial}_{label}_acc.csv")
     with open(final, "w") as out_fd:
         # header printf'd before the cat in the reference (exp_type_6.smk:357)
         out_fd.write("k,pivotnum,TP,TN,FP,FN,TP-U,TN-U,FP-U,FN-U\n")

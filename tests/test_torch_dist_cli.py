@@ -1,5 +1,6 @@
-"""`run --exp-type 1-4 --mesh-shards N` of the port (khoice_tpu_torch/cli.py
-over dist/) vs the JAX CLI's `--mesh-shards N`, on the CPU.
+"""`run --exp-type 1-4 and 6 --mesh-shards N` of the port
+(khoice_tpu_torch/cli.py over dist/) vs the JAX CLI's `--mesh-shards N`, on
+the CPU.
 
 The port's ranks are two processes of a gloo group started by
 dist/launch.py::run_ranks, each calling `cli.main` (the rank program is
@@ -7,10 +8,9 @@ tests/torch_dist_ranks.py::run_cli), as `torchrun --nproc-per-node 2 -m
 khoice_tpu_torch run ... --mesh-shards 2` would; the JAX CLI runs in this
 process on two of the conftest's virtual CPU devices.  The CSVs must be
 equal byte for byte (mirrors tests/test_sharded_occurrence.py::
-test_cli_exp1_mesh_shards and tests/test_dist_classify.py's exp2/3/4
-cases).  A config's `mesh_shards` takes the same path; a sharded run
-without one process per rank, and exp 6 sharded (not ported), exit
-non-zero before any work.
+test_cli_exp1_mesh_shards and tests/test_dist_classify.py's exp2/3/4 and
+exp6 cases).  A config's `mesh_shards` takes the same path; a sharded run
+without one process per rank exits non-zero before any work.
 """
 
 import os
@@ -92,12 +92,45 @@ def test_cli_mesh_shards_equals_jax_cli(database, tmp_path):
     assert (tmp_path / "port" / "trial_summaries/trial_1_summary.txt").exists()
 
 
+def _exp6_files(ks):
+    """exp6's files under its work root: both read types' trial CSVs and
+    every per-k matrix and accuracy file."""
+    files = ["trial_1_short_acc.csv", "trial_1_long_acc.csv"]
+    for rt in ("illumina", "ont"):
+        for k in ks:
+            files += [f"accuracies_type_6/{rt}/confusion_matrix/k_{k}_confusion_matrix.txt",
+                      f"accuracies_type_6/{rt}/confusion_matrix/"
+                      f"k_{k}_confusion_matrix_with_unidentified.txt",
+                      f"accuracies_type_6/{rt}/values/k_{k}_accuracy_values.csv"]
+    return files
+
+
+def test_cli_exp6_mesh_shards_equals_jax_cli(database, tmp_path):
+    """exp 6 on 2 ranks (exp0 first, on rank 0), then again from a config's
+    mesh_shards: 2: every trial CSV and per-k file equals the JAX CLI's
+    --mesh-shards 2 run's and its single-device run's, byte for byte."""
+    config = tmp_path / "config.yaml"
+    config.write_text("mesh_shards: 2\n")
+    argvs = [_args(6, database, tmp_path / "port") + ["--device", "cpu", "--mesh-shards", "2"],
+             _args(6, database, tmp_path / "yaml") + ["--device", "cpu", "--config", str(config)]]
+    ranks = run_ranks(2, torch_dist_ranks.run_cli, (argvs,), timeout_s=300)
+    assert ranks == [([0, 0], False)] * 2
+    assert jax_main(_args(6, database, tmp_path / "jax") + ["--mesh-shards", "2"]) == 0
+    assert jax_main(_args(6, database, tmp_path / "jax1")) == 0
+    for rel in _exp6_files(KS.split(",")):
+        want = _read(tmp_path / "jax" / rel)
+        assert want == _read(tmp_path / "jax1" / rel), rel
+        assert _read(tmp_path / "port" / rel) == want, rel
+        assert _read(tmp_path / "yaml" / rel) == want, rel
+    assert len(_read(tmp_path / "port" / "trial_1_long_acc.csv").splitlines()) == 1 + 3 * 2
+
+
 @pytest.mark.parametrize("how", ["flag", "config", "world size 3", "exp 6"])
 def test_cli_sharded_run_refused_before_any_work(database, tmp_path, monkeypatch, how):
-    """mesh_shards 2 (the flag or a config's) needs WORLD_SIZE 2 from
-    torchrun; exp 6 has no sharded path yet.  Each exits non-zero with a
-    message saying why, before reading the database or making the work
-    root."""
+    """mesh_shards 2 (the flag or a config's; exp 1, and exp 6, whose
+    sharded votes take the same launch) needs WORLD_SIZE 2 from torchrun.
+    Each exits non-zero with a message saying why, before reading the
+    database or making the work root."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     work = tmp_path / "work"
     argv = _args(6 if how == "exp 6" else 1, database, work) + ["--device", "cpu"]
@@ -111,9 +144,5 @@ def test_cli_sharded_run_refused_before_any_work(database, tmp_path, monkeypatch
         monkeypatch.setenv("WORLD_SIZE", "3")
     with pytest.raises(SystemExit) as exc:
         tcli.main(argv)
-    msg = str(exc.value.code)
-    if how == "exp 6":
-        assert "exp 6" in msg and "not ported" in msg
-    else:
-        assert "torchrun --nproc-per-node 2" in msg
+    assert "torchrun --nproc-per-node 2" in str(exc.value.code)
     assert not os.path.exists(work)

@@ -1,6 +1,7 @@
 """The key-range SPMD path (khoice_tpu_torch/dist/) on the card: a group of
 one rank on NCCL, whose exchange, gathers and sums still run, gives the
-single-device results on the card, through the same kernels.
+single-device results on the card, through the same kernels; so do exp6's
+sharded votes on two gloo ranks sharing the card.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so
 it runs where the JAX package is not installed:
@@ -14,16 +15,21 @@ import pytest
 import torch
 import torch.distributed as dist
 
+import torch_dist_ranks
+from khoice_tpu_torch.classify import annotate as ann
 from khoice_tpu_torch.dist import ksweep_classify as dkc
 from khoice_tpu_torch.dist import sharded as sh
 from khoice_tpu_torch.dist.ksweep import sharded_occurrence_histograms_sweep
+from khoice_tpu_torch.dist.launch import run_ranks
 from khoice_tpu_torch.dist.mesh import init_kv_group
 from khoice_tpu_torch.dist.occurrence import sharded_occurrence_histogram
+from khoice_tpu_torch.dist.vote import sharded_read_votes_multi
 from khoice_tpu_torch.engine import ksweep_classify as kc
 from khoice_tpu_torch.engine.ksweep import occurrence_histograms_sweep
 from khoice_tpu_torch.engine.occurrence import occurrence_histogram
 from khoice_tpu_torch.engine.session import KmerEngine
 from khoice_tpu_torch.kernels import ksweep_scan, occ_scan
+from khoice_tpu_torch.kernels import vote as kvote
 from khoice_tpu_torch.kernels import sort as ksort
 
 KS = [9, 12, 15, 21, 31, 35, 49]
@@ -93,3 +99,63 @@ def test_sharded_tables_and_occurrence_on_the_card(group, k):
     got = sharded_occurrence_histogram(group, members, k, cx=8)
     assert occ_scan.launches["packed"] == packed + 1
     assert got == occurrence_histogram(members, k, "cuda", cx=8)
+
+
+VOTE_KS = [11, 21, 33]
+
+
+def _vote_world(seed=5):
+    """(groups, read matrices): 4 related datasets of 2 members with N runs
+    and poly-A tracts (_members), and per pivot reads from its own genome,
+    random reads, an all-A read and a read with Ns, padded with 4s."""
+    rng = np.random.default_rng(seed)
+    members = _members(seed, n=8, length=6000)
+    groups = [np.concatenate([members[2 * d], [4], members[2 * d + 1]]).astype(np.uint8)
+              for d in range(4)]
+    mats = []
+    for d in range(4):
+        rows = [members[2 * d][i:i + 150] for i in range(0, 3000, 97)]
+        rows += [rng.integers(0, 4, 120).astype(np.uint8), np.zeros(80, np.uint8),
+                 np.concatenate([rng.integers(0, 4, 60), [4, 4], rng.integers(0, 4, 60)])]
+        mat = np.full((len(rows), 150), 4, np.uint8)
+        for r, row in enumerate(rows):
+            mat[r, :len(row)] = row
+        mats.append(mat)
+    return groups, mats
+
+
+def _single_votes(groups, mats, k, device):
+    texts = ann.pack_group_texts(groups, device)
+    big, spans = ann.concat_flat_reads([ann.flat_reads_device(m, device) for m in mats])
+    return [[a.tolist() for a in t]
+            for t in ann.read_votes_bulk_multi(texts, big, spans, k, len(groups))]
+
+
+@pytest.mark.cuda
+def test_sharded_votes_on_the_card_equal_single_device(group):
+    """exp6's sharded votes over the one-rank NCCL group launch A, the sort,
+    vote_mask and read_votes, and equal the single-device votes on the card
+    and on the CPU."""
+    groups, mats = _vote_world()
+    before = dict(kvote.launches)
+    got = sharded_read_votes_multi(group, groups, mats, VOTE_KS)
+    assert all(kvote.launches[n] == before[n] + len(VOTE_KS) for n in before)
+    for k in VOTE_KS:
+        want = _single_votes(groups, mats, k, "cuda")
+        assert want == _single_votes(groups, mats, k, "cpu")
+        assert [[a.tolist() for a in t] for t in got[k]] == want, f"k={k}"
+
+
+@pytest.mark.cuda
+def test_sharded_votes_two_gloo_ranks_on_one_card(group):
+    """Two gloo ranks, both on cuda:0 (dist/launch.py::run_ranks): every
+    rank's votes equal the single-device votes on the card, and the query
+    windows the ranks received sum to its n_kmers."""
+    groups, mats = _vote_world(seed=6)
+    cases = {"card": {"groups": groups, "mats": mats, "ks": VOTE_KS, "bucket_cap": None}}
+    ranks = run_ranks(2, torch_dist_ranks.votes, (cases, "cuda"), timeout_s=300)
+    for i, k in enumerate(VOTE_KS):
+        want = _single_votes(groups, mats, k, "cuda")
+        for r in ranks:
+            assert r["card"]["votes"][k] == want, f"k={k}"
+        assert sum(r["card"]["received"][i] for r in ranks) == sum(sum(t[2]) for t in want)

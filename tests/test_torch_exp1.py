@@ -132,11 +132,14 @@ def test_cli_without_cuda_fails_loudly(rng, tmp_path):
 
 
 def test_port_never_imports_jax(rng, tmp_path):
-    """Walking every module of the port and running exp 0-8 on the CPU
-    (exp 5, 7 and 8 with the native MS engine; exp8 on 4 reads per read
-    type and dataset), exp1 again with the table ops, and exp 1/2 again
-    on a 2-k grid (the per-k path), imports neither jax nor anything of
-    the JAX package."""
+    """Walking every module of the port (dist/vote.py, dist/multihost.py,
+    engine/extract.py, oracle/, analysis/ and tools/ among them) and
+    running exp 0-8 on the CPU (exp 5, 7 and 8 with the native MS engine;
+    exp8 on 4 reads per read type and dataset), exp1 again with the table
+    ops, exp 1/2 again on a 2-k grid (the per-k path), and exp 6 sharded
+    over two gloo ranks (`--mesh-shards 2`, as torchrun would start them),
+    imports neither jax nor anything of the JAX package, in this process
+    or in a rank."""
     db = tmp_path / "db"
     _write_db(str(db), rng, glen=3000)  # long enough for exp0's ONT reads
     config = tmp_path / "config.yaml"
@@ -162,6 +165,13 @@ def test_port_never_imports_jax(rng, tmp_path):
         f"    assert main(['run', '--exp-type', t, '--device', 'cpu', '--database-root', {str(db)!r},\n"
         f"                 '--work-root', {str(tmp_path / 'perk')!r}, '--k-values', '11,31',\n"
         "                 '--kmers-per-dataset', '1000']) == 0\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_dist_ranks\n"
+        "from khoice_tpu_torch.dist.launch import run_ranks\n"
+        f"argv = ['run', '--exp-type', '6', '--device', 'cpu', '--mesh-shards', '2',\n"
+        f"        '--database-root', {str(db)!r}, '--work-root', {str(tmp_path / 'sharded6')!r},\n"
+        "        '--k-values', '7,9,12', '--kmers-per-dataset', '1000']\n"
+        "assert run_ranks(2, torch_dist_ranks.run_cli, ([argv],)) == [([0], False)] * 2\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'khoice_tpu' or m.startswith('khoice_tpu.'))\n"
@@ -184,6 +194,8 @@ def test_port_never_imports_jax(rng, tmp_path):
     assert (work / "output_type_8/half_mems/t_30/illumina/confusion_matrix.csv").exists()
     assert (_read(tmp_path / "ops/step_9/across_datasets_analysis.csv")
             == _read(work / "step_9/across_datasets_analysis.csv"))
+    for rel in ("trial_1_short_acc.csv", "trial_1_long_acc.csv"):
+        assert _read(tmp_path / "sharded6" / rel) == _read(work / rel)
     perk = tmp_path / "perk"
     assert (perk / "step_9/across_datasets_analysis.csv").exists()
     assert (perk / "within_dataset_analysis_type_2/within_dataset_analysis.csv").exists()

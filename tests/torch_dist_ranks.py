@@ -1,4 +1,5 @@
-"""Rank programs of tests/test_torch_dist.py and tests/test_torch_dist_cli.py.
+"""Rank programs of tests/test_torch_dist.py, tests/test_torch_dist_vote.py
+and tests/test_torch_dist_cli.py.
 
 khoice_tpu_torch/dist/launch.py::run_ranks pickles a module-level function
 and calls it in every rank of a gloo group on the CPU.  A rank imports this
@@ -122,3 +123,45 @@ def run_cli(argvs):
         except Exception as exc:  # noqa: BLE001 - reported to the test
             out.append(type(exc).__name__)
     return out, "jax" in sys.modules
+
+
+def votes(cases, device="cpu"):
+    """dist/vote.py::sharded_read_votes_multi on each case of
+    tests/test_torch_dist_vote.py (name -> groups, read matrices, ks,
+    bucket_cap), at this group's world size: the votes as lists, and the
+    query windows this rank received in each call of read_votes (the
+    validity it gives the kernel's wrapper, counted here).  With device
+    "cuda" every rank takes cuda:0 (gloo takes CUDA tensors, so the ranks
+    share one card)."""
+    import torch
+    import torch.distributed as dist
+
+    from khoice_tpu_torch.dist.mesh import KvGroup
+    from khoice_tpu_torch.dist.vote import sharded_read_votes_multi
+    from khoice_tpu_torch.kernels import vote as kvote
+
+    if device == "cpu":
+        g = init_kv_group("cpu")
+    else:
+        g = KvGroup(rank=dist.get_rank(), world_size=dist.get_world_size(),
+                    device=torch.device("cuda", 0))
+    received = []
+    read_votes = kvote.read_votes
+
+    def counted(qmask, valid, *args):
+        received.append(int(valid.sum()))
+        return read_votes(qmask, valid, *args)
+
+    kvote.read_votes = counted
+    out = {"jax": "jax" in sys.modules, "world_size": g.world_size}
+    try:
+        for name, case in cases.items():
+            received.clear()
+            got = sharded_read_votes_multi(g, case["groups"], case["mats"], case["ks"],
+                                           bucket_cap=case["bucket_cap"])
+            out[name] = {"votes": {k: [[a.tolist() for a in t] for t in v]
+                                   for k, v in got.items()},
+                         "received": list(received)}
+    finally:
+        kvote.read_votes = read_votes
+    return out
