@@ -12,6 +12,17 @@ Phases (any failure raises, so the exit code is non-zero):
   3. kernels vs plain: each kernel and its plain PyTorch version on the
      same inputs on the card, exactly equal, timed in turns (plain,
      kernel, kernel, plain):
+     - first the sweep's extraction (csrc/extract_sweep.cu), since every
+       shared-sort input below comes from it: doubled texts of the bench
+       class (8 x 2^21 bases, kmax 49, 4 packed words), the unpacked
+       class (kmax 30, 2 words and the payload row) and 96 x 2^20 bases
+       (~201M positions, kmax 30: a size test, groups over 64 members do
+       not sweep), and a streamed chunk in direct mode (a slice of a
+       doubled text at an unaligned offset, its positions past the slice
+       invalid), each with the profiler's device time; and untimed edge
+       cases (n 0, 1, below the halo, a tile +- 1, invalid codes at a tile
+       boundary and at the doubled junction, unaligned slices, only
+       invalid codes) at every class of the 30-point grid and kmax 63;
      - first the radix sort, since the later kernels' inputs are sorted by
        it: keys and payload bit-equal on the bench class (8 x 2^21 bases,
        33.6M doubled elements, 4 packed words), the unpacked 2-word class
@@ -38,8 +49,8 @@ Phases (any failure raises, so the exit code is non-zero):
      - the extraction kernel (A) on 2^24 codes with N runs, k in
        {7, 15, 16, 31, 32, 49, 63}, keys and the gid-packed form, and at
        the size of a call of exp1's table ops (2.0M codes, k in {7, 15,
-       21, 31, 49}) with the profiler's device time beside the wrapper's
-       span;
+       21, 31, 49}), each with the profiler's device time beside the
+       wrapper's span;
      - the occurrence-histogram kernel, packed (B), on the sorted words of
        96 members x 2^20 at k = 31 and 49 (one member with a poly-A
        tract, so runs cross tiles), and unpacked (C) on 300 members x
@@ -86,16 +97,19 @@ Phases (any failure raises, so the exit code is non-zero):
      the largest device-memory estimate that the engine checked against
      its budget (with what the run held at the check) is printed beside
      the run's peak, with the checked step whose own peak comes nearest
-     to (or furthest over) its estimate; the run's peak must not exceed
+     to (or furthest over) its estimate and the one whose estimate is
+     loosest against its own peak; the run's peak must not exceed
      the largest estimate, nor any checked step's peak its own.  Each
      kernel call is
      timed (CUDA events) and held against its plain version on the same
-     inputs, exactly, after its timed span: every scan call of 4a, the
+     inputs, exactly, after its timed span: every scan call of 4a, every
+     sweep extraction of 4a/4b and every phase-6 run, the
      first SORT_HOLDS sorts of each 4a/4b run, in 4b every extraction
      and histogram call at the ks where a word count changes (HOLD_KS),
      in each exp6 run every vote_mask and read_votes call at HOLD_KS,
-     and in each 4c run the first STREAM_HOLDS chunk sorts, the first
-     key-range group's sort and its raw scan; 4b's scan calls (388M
+     and in each 4c run the first STREAM_HOLDS chunk extractions and
+     sorts, the first key-range group's sort and its raw scan; every run
+     that sweeps must launch the sweep's extraction; 4b's scan calls (388M
      elements) are timed only.  Wall, peak device memory and each
      kernel's calls are printed, and each run's sort launches; the
      kernels line reports the sort's from one run, SORT_RUN.
@@ -231,7 +245,7 @@ def build():
     # "Used R registers"; one line per kernel: its instantiations' registers
     name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
-        m = re.search(r"entry function '.*?(occ_tiles|scan_tiles|extract_kernel"
+        m = re.search(r"entry function '.*?(occ_tiles|scan_tiles|extract_kernel|sweep_tiles"
                       r"|(?:first|middle|last)_pass_kernel|vote_mask_tiles|read_votes_rows)",
                       line)
         if m:
@@ -300,8 +314,10 @@ def max_err(got, want):
 
 def device_ms(fn, kernel, reps=10):
     """Mean device time of the CUDA kernel whose name holds `kernel` per
-    call of fn, from torch.profiler's trace of `reps` calls (the wrapper's
-    host time left out); None where the trace has no device time for it."""
+    launch, from torch.profiler's trace of `reps` calls of fn (one launch
+    each; the wrapper's host time left out): the trace's total over the
+    launches it recorded, which can be fewer than `reps` (the tracer drops
+    records now and then); None where it recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -310,8 +326,9 @@ def device_ms(fn, kernel, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us else None
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    us, count = sum(getattr(e, "device_time_total", 0) for e in rows), sum(e.count for e in rows)
+    return us / count / 1e3 if us and count else None
 
 
 def compare(label, kern, plain, args, plain_reps=2, kern_reps=10, profiled=None):
@@ -415,6 +432,81 @@ def sort_vs_plain(label, words, payload, timed=True, plain_reps=2):
           "(bytes)", flush=True)
     return {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "bound_ms": bound, "library_ms": lib, "passes": passes}
+
+
+SWEEP_EDGE_CLASSES = ((30, 2, False), (46, 3, False), (49, 4, True), (49, 4, False),
+                      (63, 4, False))  # the 30-point grid's classes, and kmax 63
+
+
+def sweep_kernel_vs_plain(bench, members96):
+    """The sweep's extraction (kernels/extract_sweep.py) against its plain
+    version: the doubled texts of the bench class, the unpacked class and
+    96 x 2^20 bases, and a streamed chunk in direct mode, each timed with
+    the profiler's device time; then untimed edge cases at every class of
+    the 30-point grid and kmax 63.  Returns the kernels line's record (the
+    bench class) with the largest difference over every case."""
+    from khoice_tpu_torch.engine.occurrence import pack_members
+    from khoice_tpu_torch.kernels import _build
+    from khoice_tpu_torch.kernels import extract_sweep as kxs
+
+    dev = torch.device("cuda")
+    errs = []
+
+    def doubled(label, codes, gids, kmax, KW, packed, plain_reps=2):
+        return compare(f"sweep extraction {label} (kmax {kmax}, KW {KW}, packed {packed}, "
+                       f"doubled, n2={2 * codes.shape[0]})",
+                       lambda: kxs.doubled_elements(codes, gids, kmax, KW, packed),
+                       lambda: kxs.doubled_elements_reference(codes, gids, kmax, KW, packed),
+                       (codes, gids), plain_reps, profiled="sweep_tiles")
+
+    codes, gids = pack_members(bench, dev)
+    record = doubled("bench class 8x2^21", codes, gids, 49, 4, True)
+    errs.append(doubled("unpacked class 8x2^21", codes, gids, 30, 2, False)["max_abs_err"])
+    # a chunk of the streaming sweep: a slice of the doubled text with its
+    # halo, at an offset off any 16-B boundary
+    d_codes = torch.cat([codes, torch.where(codes < 4, codes ^ 3, codes).flip(0)])
+    start, C, H = 12345, 1 << 23, 48
+    chunk = d_codes[start:start + C + H]
+    chunk_gids = torch.arange(C + H, device=dev) % 8
+    errs.append(compare(f"sweep extraction streamed chunk (direct, {C} + {H} positions at "
+                        f"offset {start}, kmax 49, KW 4, packed)",
+                        lambda: kxs.extract_fwd_sweep(chunk, chunk_gids, 49, 4, True),
+                        lambda: kxs.extract_fwd_sweep_reference(chunk, chunk_gids, 49, 4, True),
+                        (chunk, chunk_gids), profiled="sweep_tiles")["max_abs_err"])
+    del codes, gids, d_codes, chunk, chunk_gids
+    codes, gids = pack_members(members96, dev)
+    errs.append(doubled("96x2^20 (a size test)", codes, gids, 30, 2, False,
+                        plain_reps=1)["max_abs_err"])
+    del codes, gids
+    rng = np.random.default_rng(13)
+    tile = _build.load().extract_sweep_tile_elems()
+    buf = torch.from_numpy(rng.integers(0, 4, 6 * tile, dtype=np.uint8)).to(dev)
+    gbuf = torch.from_numpy(rng.integers(0, 64, 6 * tile)).to(dev)
+    cases = [(f"n {n}", buf[:n], gbuf[:n])
+             for n in (0, 1, 63, (tile - 1) // 2, tile // 2, tile - 1, tile, tile + 1)]
+    marked = buf[:3 * tile + 8].clone()
+    marked[[tile - 1, tile, marked.shape[0] - 1]] = 4  # a tile boundary, the junction
+    cases += [("invalid codes at a tile boundary and the doubled junction", marked,
+               gbuf[:3 * tile + 8])]
+    cases += [(f"unaligned slice at offset {off}", buf[off:off + 2 * tile + 45],
+               gbuf[off:off + 2 * tile + 45]) for off in (1, 13)]
+    cases += [("only invalid codes", torch.full((tile + 7,), 4, dtype=torch.uint8, device=dev),
+               gbuf[:tile + 7])]
+    for label, codes, gids in cases:
+        for kmax, KW, packed in SWEEP_EDGE_CLASSES:
+            for fn, plain in ((kxs.doubled_elements, kxs.doubled_elements_reference),
+                              (kxs.extract_fwd_sweep, kxs.extract_fwd_sweep_reference)):
+                err = max_err(fn(codes, gids, kmax, KW, packed), plain(codes, gids, kmax, KW, packed))
+                errs.append(err)
+                if err:
+                    raise AssertionError(f"sweep extraction {label} kmax={kmax} KW={KW} "
+                                         f"packed={packed} {fn.__name__}: kernel != plain ({err})")
+        print(f"sweep extraction {label}: equal at kmax/KW {SWEEP_EDGE_CLASSES}, doubled and "
+              "direct", flush=True)
+    record["max_abs_err"] = max([record["max_abs_err"]] + errs)
+    print(f"sweep extraction's time over its bound at the bench class: "
+          f"{record['ms'] / record['bound_ms']:.1f}x", flush=True)
+    return record
 
 
 def sort_kernel_vs_plain(bench, members96):
@@ -528,7 +620,8 @@ def perk_kernels_vs_plain(rng, members96):
     for k in (7, 15, 16, 31, 32, 49, 63):
         r = compare(f"A extract_canonical n=2^24 k={k}",
                     lambda: extract.extract_canonical(codes, k),
-                    lambda: extract.extract_canonical_reference(codes, k), (codes,))
+                    lambda: extract.extract_canonical_reference(codes, k), (codes,),
+                    profiled="extract_kernel")
         errs.append(r["max_abs_err"])
         if k == 31:
             results["A"] = r
@@ -536,7 +629,7 @@ def perk_kernels_vs_plain(rng, members96):
             errs.append(compare(f"A extract_packed n=2^24 k={k}",
                                 lambda: extract.extract_packed(codes, gids, k),
                                 lambda: extract.extract_packed_reference(codes, gids, k),
-                                (codes, gids))["max_abs_err"])
+                                (codes, gids), profiled="extract_kernel")["max_abs_err"])
     del codes, gids
     # exp1's table ops call A once per genome and k (<= 2.0M codes): the
     # wrapper's span beside the kernel's device time (the profiler's)
@@ -679,12 +772,13 @@ def kernels_vs_plain():
     bench = random_members(rng, 8, 1 << 21)
     members96 = random_members(rng, 96, 1 << 20)
     members96[0] = np.concatenate([members96[0], np.zeros(100_000, np.uint8)])  # poly-A
+    sweep = sweep_kernel_vs_plain(bench, members96)
     sort = sort_kernel_vs_plain(bench, members96)
     occ = scan_vs_plain("bench 8x2^21 grid30", bench, K_GRID)
     wide = scan_vs_plain("64x2^16 grid30", random_members(rng, 64, 1 << 16), K_GRID)
     unpacked = scan_vs_plain("bench 8x2^21 ks11..31", bench, list(range(11, 32)))
     occ["max_abs_err"] = max(r["max_abs_err"] for r in (occ, wide, unpacked))
-    results = {"occ": occ, "sort": sort}
+    results = {"occ": occ, "sort": sort, "sweep": sweep}
     results["pivot_rest"] = scan_vs_plain("bench 1+7 members", bench, K_GRID, "pivot_rest", 7)
     results["multi_pivot"] = scan_vs_plain("bench D=4", bench, K_GRID, "multi_pivot", 4)
     groups = random_members(rng, 4, 1 << 21)
@@ -714,8 +808,8 @@ class Held:
     and, after the call's timed span, holds the calls `hold(kernel, k,
     nth)` picks against the plain version on the same inputs, exactly.  A
     call's k is its extraction's, or the last extraction's for the
-    histogram that follows it; nth counts the kernel's earlier calls in
-    the run.  `errors` gets each kernel's largest
+    histogram that follows it (a sweep extraction's, its kmax); nth
+    counts the kernel's earlier calls in the run.  `errors` gets each kernel's largest
     difference, `plain_s` the seconds the checks took; `peak()` is the
     run's peak device memory without the plain versions' own."""
 
@@ -735,6 +829,8 @@ class Held:
             kernel = args[3] if label == "scan_classify" else label
             if label.startswith("A"):
                 self.k = int(args[-1])
+            elif label == "sweep":
+                self.k = int(args[2])  # kmax
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -827,6 +923,7 @@ def kernel_specs(scan_plain):
     from khoice_tpu_torch.dist import vote as dvote
     from khoice_tpu_torch.engine import ksweep, ksweep_classify, occurrence, ops, streaming
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
+    from khoice_tpu_torch.kernels import extract_sweep as kxs
     from khoice_tpu_torch.kernels import sort as ksort
     from khoice_tpu_torch.kernels import vote as kvote
 
@@ -838,6 +935,9 @@ def kernel_specs(scan_plain):
         (dksweep, "scan_multi_k", "occ", scan_occ),
         (ksweep_classify, "scan_classify", "scan_classify", scan_cls),
         (dksweep, "scan_classify", "scan_classify", scan_cls),
+        (ksweep, "doubled_elements", "sweep", kxs.doubled_elements_reference),
+        (dksweep, "_doubled_elements", "sweep", kxs.doubled_elements_reference),
+        (streaming, "_extract_fwd_sweep", "sweep", kxs.extract_fwd_sweep_reference),
         (occurrence, "extract_packed", "A packed", extract.extract_packed_reference),
         (doccurrence, "extract_packed", "A packed", extract.extract_packed_reference),
         (occurrence, "extract_canonical", "A keys", extract.extract_canonical_reference),
@@ -858,10 +958,12 @@ def kernel_specs(scan_plain):
 
 def reset_counts():
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
+    from khoice_tpu_torch.kernels import extract_sweep as kxs
     from khoice_tpu_torch.kernels import sort as ksort
     from khoice_tpu_torch.kernels import vote as kvote
 
-    for counts in (ksweep_scan.launches, extract.launches, occ_scan.launches, kvote.launches):
+    for counts in (ksweep_scan.launches, extract.launches, occ_scan.launches, kvote.launches,
+                   kxs.launches):
         for key in counts:
             counts[key] = 0
     ksort.launches = 0
@@ -869,9 +971,10 @@ def reset_counts():
 
 def read_counts():
     """Launches per kernel: the scan's modes, A (extraction, both forms),
-    B (packed histogram), C (unpacked histogram), the sort and the vote
-    kernels."""
+    B (packed histogram), C (unpacked histogram), the sort, the vote
+    kernels and the sweep's extraction (both modes)."""
     from khoice_tpu_torch.kernels import extract, ksweep_scan, occ_scan
+    from khoice_tpu_torch.kernels import extract_sweep as kxs
     from khoice_tpu_torch.kernels import sort as ksort
     from khoice_tpu_torch.kernels import vote as kvote
 
@@ -881,6 +984,7 @@ def read_counts():
     counts["B"] = occ_scan.launches["packed"]
     counts["C"] = occ_scan.launches["unpacked"]
     counts["sort"] = ksort.launches
+    counts["sweep"] = kxs.launches["direct"] + kxs.launches["doubled"]
     return counts
 
 
@@ -988,6 +1092,10 @@ def run_path(label, argv, hold, uses, expect_lines, scan_plain=True, per_call=No
               f"{len(est.steps) - 1} checked steps, the weakest {step!r}: estimate "
               f"{step_est / 2**30:.3f} GiB (with what the run held), peak "
               f"{step_peak / 2**30:.3f} GiB", flush=True)
+        loose = max(est.steps[1:], key=lambda x: x[1] / max(x[2], 1))
+        print(f"  the loosest checked step {loose[0]!r}: estimate {loose[1] / 2**30:.3f} GiB, "
+              f"{loose[1] / max(loose[2], 1):.3f}x its peak {loose[2] / 2**30:.3f} GiB",
+              flush=True)
         if held.peak() > est.largest():
             raise AssertionError(f"{label}: peak {held.peak()} B over the estimate "
                                  f"{est.largest()} B")
@@ -1072,19 +1180,20 @@ def main_paths(tmp):
     launches, errors, sorts = {}, {}, {}
     work1 = os.path.join(tmp, "work1")
     c, e, _, _ = run_path("exp1, 30 ks", ["run", "--exp-type", "1", "--database-root", db,
-                                          "--work-root", work1], every, ["occ"], {
+                                          "--work-root", work1], every, ["occ", "sweep"], {
         os.path.join(work1, "step_5/within_datasets_analysis.csv"): 1 + 4 * g,
         os.path.join(work1, "step_9/across_datasets_analysis.csv"): 1 + g})
-    launches["occ"] = c["occ"]
+    launches["occ"], launches["sweep"] = c["occ"], c["sweep"]
     sorts["exp1 on 4 x 8 x 2 Mbp"] = c["sort"]
     merge(e, errors)
     work = os.path.join(tmp, "work")
     common = ["--database-root", db, "--work-root", work, "--kmers-per-dataset", "2000000"]
     c, e, _, _ = run_path("exp2 (with exp0), 30 ks", ["run", "--exp-type", "2", *common], every,
-                          ["pivot_rest", "multi_pivot"], {
+                          ["pivot_rest", "multi_pivot", "sweep"], {
         os.path.join(work, "within_dataset_analysis_type_2/within_dataset_analysis.csv"): 1 + 4 * g,
         os.path.join(work, "across_dataset_analysis_type_2/across_dataset_analysis.csv"): 1 + 4 * g})
     launches["pivot_rest"], launches["multi_pivot"] = c["pivot_rest"], c["multi_pivot"]
+    launches["sweep"] += c["sweep"]
     sorts["exp2 on 4 x 8"] = c["sort"]
     merge(e, errors)
     # the 30-k CSVs, before the per-k runs below rewrite exp3's and exp4's
@@ -1097,15 +1206,17 @@ def main_paths(tmp):
 
     keep_csvs(2)
     c, e, _, _ = run_path("exp3, 30 ks", ["run", "--exp-type", "3", *common], every,
-                          ["containment"], {
+                          ["containment", "sweep"], {
         os.path.join(work, "final_analysis_type3/final_analysis_type3.csv"): 1 + 2 * 4 * g * 4})
     launches["containment"] = c["containment"]
+    launches["sweep"] += c["sweep"]
     sorts["exp3 on 4 x 8"] = c["sort"]
     merge(e, errors)
     keep_csvs(3)
-    c, e, _, _ = run_path("exp4, 30 ks", ["run", "--exp-type", "4", *common], every, ["buckets"], {
+    c, e, _, _ = run_path("exp4, 30 ks", ["run", "--exp-type", "4", *common], every, ["buckets", "sweep"], {
         os.path.join(work, "accuracies_type_4/accuracy_values.csv"): 4 * g})
     launches["buckets"] = c["buckets"]
+    launches["sweep"] += c["sweep"]
     sorts["exp4 on 4 x 8"] = c["sort"]
     merge(e, errors)
     keep_csvs(4)
@@ -1132,17 +1243,17 @@ def large_group_paths(tmp):
           "run --exp-type 1, 2, 6")
     db = gen_db(tmp, "db96", 2, 96, 1.0)
     g = len(K_GRID)
-    at_hold_ks = hold_sorts_and(lambda kernel, k: k in HOLD_KS)
+    at_hold_ks = hold_sorts_and(lambda kernel, k: kernel == "sweep" or k in HOLD_KS)
     launches, errors, per, sorts = {}, {}, {}, {}
     work1 = os.path.join(tmp, "work96_1")
     c, e, per["exp1"], _ = run_path(
         "exp1 on 2 x 96 x 1 Mbp, 30 ks", ["run", "--exp-type", "1", "--database-root", db,
                                           "--work-root", work1],
-        at_hold_ks, ["A", "B", "occ"], {
+        at_hold_ks, ["A", "B", "occ", "sweep"], {
             os.path.join(work1, "step_5/within_datasets_analysis.csv"): 1 + 2 * g,
             os.path.join(work1, "step_9/across_datasets_analysis.csv"): 1 + g},
         scan_plain=False)
-    launches["A"], launches["B"] = c["A"], c["B"]
+    launches["A"], launches["B"], launches["sweep"] = c["A"], c["B"], c["sweep"]
     sorts["exp1 on 2 x 96 x 1 Mbp"] = c["sort"]
     merge(e, errors)
     work2 = os.path.join(tmp, "work96_2")
@@ -1150,11 +1261,12 @@ def large_group_paths(tmp):
         "exp2 (with exp0) on 2 x 96 x 1 Mbp, 30 ks",
         ["run", "--exp-type", "2", "--database-root", db, "--work-root", work2,
          "--kmers-per-dataset", "2000000"],
-        at_hold_ks, ["A", "multi_pivot"], {
+        at_hold_ks, ["A", "multi_pivot", "sweep"], {
             os.path.join(work2, "within_dataset_analysis_type_2/within_dataset_analysis.csv"): 1 + 2 * g,
             os.path.join(work2, "across_dataset_analysis_type_2/across_dataset_analysis.csv"): 1 + 2 * g},
         scan_plain=False)
     sorts["exp2 on 2 x 96"] = c["sort"]
+    launches["sweep"] += c["sweep"]
     merge(e, errors)
     # the group texts, ~192M positions per k, against the pivots' reads
     c, e, _ = exp6_run("exp6 on 2 x 96 x 1 Mbp, 30 ks", db, work2, 2)
@@ -1162,9 +1274,9 @@ def large_group_paths(tmp):
     sorts["exp6 on 2 x 96"] = c["sort"]
     merge(e, errors)
     held = {kernel: per["exp1"].get(kernel, {}).get("held", 0) + per["exp2"].get(kernel, {}).get("held", 0)
-            for kernel in ("A packed", "A keys", "B", "sort")}
-    print(f"held against their plain versions (A and B at k in {HOLD_KS}, the first "
-          f"{SORT_HOLDS} sorts of each run): {held} calls, all equal")
+            for kernel in ("A packed", "A keys", "B", "sort", "sweep")}
+    print(f"held against their plain versions (A and B at k in {HOLD_KS}, every sweep "
+          f"extraction, the first {SORT_HOLDS} sorts of each run): {held} calls, all equal")
     return launches, errors, sorts, db, work1
 
 
@@ -1173,8 +1285,9 @@ def streaming_paths(tmp, runs):
     [(label, database, budget GiB, n_groups, in-core work root, kernels
     the run uses)].  Each run's first STREAM_HOLDS chunk sorts, its first
     key-range group's sort and that group's raw scan are held against
-    their plain versions.  Returns each kernel's largest difference and
-    each run's sort launches."""
+    their plain versions, and so are its first STREAM_HOLDS chunk
+    extractions.  Returns each kernel's largest difference and each
+    run's sort and sweep-extraction launches."""
     phase("4c the streaming sweep: run --exp-type 1 under a device budget below the "
           "in-core need")
     import logging
@@ -1204,7 +1317,7 @@ def streaming_paths(tmp, runs):
 
     def hold(kernel, k, nth):
         if site["in"] == "chunk":
-            return kernel == "sort" and site["chunk"] <= STREAM_HOLDS
+            return kernel in ("sort", "sweep") and site["chunk"] <= STREAM_HOLDS
         return site["in"] == "group" and site["group"] == 1
 
     keep = Keep()
@@ -1215,7 +1328,7 @@ def streaming_paths(tmp, runs):
     for name, fn in steps:
         setattr(streaming, name, step(name.split("_")[1], fn))
     g = len(K_GRID)
-    errors, sorts = {}, {}
+    errors, sorts, sweeps = {}, {}, {}
     csvs = ("step_5/within_datasets_analysis.csv", "step_9/across_datasets_analysis.csv")
     try:
         for label, db, gib, n_groups, incore, uses in runs:
@@ -1225,17 +1338,20 @@ def streaming_paths(tmp, runs):
             c, e, per, stats = run_path(
                 f"exp1 streamed on {label}, --device-budget-gb {gib}",
                 ["run", "--exp-type", "1", "--database-root", db, "--work-root", work,
-                 "--device-budget-gb", str(gib), "--force"], hold, ["occ"] + uses,
+                 "--device-budget-gb", str(gib), "--force"], hold, ["occ", "sweep"] + uses,
                 {os.path.join(work, csvs[0]): 1 + n_groups * g, os.path.join(work, csvs[1]): 1 + g},
                 per_call=(), incore=False)
             sorts[f"exp1 streamed on {label}"] = c["sort"]
+            sweeps[label] = c["sweep"]
             merge(e, errors)
-            if per["sort"]["held"] != STREAM_HOLDS + 1 or per["occ"]["held"] != 1:
-                raise AssertionError(f"{label}: held {per['sort']['held']} sorts and "
-                                     f"{per['occ']['held']} scans, expected "
-                                     f"{STREAM_HOLDS + 1} and 1")
-            print(f"held against their plain versions: the first {STREAM_HOLDS} chunk sorts, "
-                  "the first key-range group's sort and its raw scan, all equal")
+            held = (per["sort"]["held"], per["occ"]["held"], per["sweep"]["held"])
+            if held != (STREAM_HOLDS + 1, 1, STREAM_HOLDS):
+                raise AssertionError(f"{label}: held {held} sorts, scans and sweep "
+                                     f"extractions, expected {STREAM_HOLDS + 1}, 1 and "
+                                     f"{STREAM_HOLDS}")
+            print(f"held against their plain versions: the first {STREAM_HOLDS} chunk "
+                  "extractions and sorts, the first key-range group's sort and its raw scan, "
+                  "all equal")
             streamed = [line for line in lines if "streaming" in line]
             if not any("streaming class" in line and "done" in line for line in streamed):
                 raise AssertionError(f"{label}: exp1 did not stream under {gib} GiB")
@@ -1257,7 +1373,7 @@ def streaming_paths(tmp, runs):
             setattr(streaming, name, fn)
         for logger in loggers:
             logger.removeHandler(keep)
-    return errors, sorts
+    return errors, sorts, sweeps
 
 
 def table_op_path(tmp, db, work1):
@@ -1726,7 +1842,7 @@ def two_ranks_one_card(db, out1):
         print(f"6d rank {rank}: sweep wall {wall:.2f} s (plain checks excluded), launches "
               f"{ {k: v for k, v in counts.items() if v} }, every kernel call held, equal",
               flush=True)
-    for kernel in ("occ", "sort"):
+    for kernel in ("occ", "sort", "sweep"):
         if any(counts[kernel] < 1 for _, counts, _, _ in ranks):
             raise AssertionError(f"6d: a rank never launched the {kernel} kernel")
     print(f"6d: two gloo ranks on cuda:0, exp1's sharded sweep of group 1 (8 x 2 Mbp, 30 ks): "
@@ -1791,7 +1907,8 @@ def sharded_paths(tmp, db, work1, work, csv30, db96):
             return 0
 
         c, e, _, st = run_path(
-            "6a exp1 sharded (1 rank, NCCL), 30 ks", exp1, lambda kernel, k, nth: True, ["occ"],
+            "6a exp1 sharded (1 rank, NCCL), 30 ks", exp1, lambda kernel, k, nth: True,
+            ["occ", "sweep"],
             {os.path.join(out1, CSVS[1][0]): 1 + 4 * g, os.path.join(out1, CSVS[1][1]): 1 + g})
         add("6a exp1", c, e, st)
         same_bytes("6a exp1", [(os.path.join(out1, rel), read_bytes(os.path.join(work1, rel)))
@@ -1826,7 +1943,7 @@ def sharded_paths(tmp, db, work1, work, csv30, db96):
 
             c, e, _, st = run_path(
                 f"6b exp{exp_type} sharded (1 rank, NCCL), 30 ks", drive,
-                hold_sorts_and(lambda kernel, k: True), uses,
+                hold_sorts_and(lambda kernel, k: True), uses + ["sweep"],
                 {os.path.join(out, rel): lines[exp_type] for rel in CSVS[exp_type][:1]})
             add(f"6b exp{exp_type}", c, e, st)
             same_bytes(f"6b exp{exp_type}", [(os.path.join(out, rel), csv30[rel])
@@ -2013,7 +2130,7 @@ def multihost_paths(tmp, db, work):
             for got, want in zip(votes[k], want_v[k]):
                 if not all(np.array_equal(a, b) for a, b in zip(got, want)):
                     raise AssertionError(f"6f process {r} k={k}: votes differ")
-        for kernel in ("sort", "A", "vote_mask", "read_votes"):
+        for kernel in ("sort", "A", "vote_mask", "read_votes", "sweep"):
             if counts[kernel] < 1:
                 raise AssertionError(f"6f process {r} never launched the {kernel} kernel")
         for kernel, n in counts.items():
@@ -2137,16 +2254,18 @@ def main():
         t0 = time.perf_counter()
         big_launches, big_errors, big_sorts, db96, work96 = large_group_paths(tmp)
         walls["main paths 2 x 96"] = time.perf_counter() - t0
-        launches.update(big_launches)
+        for kernel, n in big_launches.items():  # the sweep's adds to 4a's
+            launches[kernel] = launches.get(kernel, 0) + n
         sorts.update(big_sorts)
         merge(big_errors, errors)
         t0 = time.perf_counter()
-        stream_errors, stream_sorts = streaming_paths(tmp, [
+        stream_errors, stream_sorts, stream_sweeps = streaming_paths(tmp, [
             ("2 x 96 x 1 Mbp", db96, 12, 2, work96, ["A", "B"]),
             ("4 x 8 x 2 Mbp", db, 4, 4, work1, []),
         ])
         walls["streaming 4c"] = time.perf_counter() - t0
         sorts.update(stream_sorts)
+        launches["sweep"] += sum(stream_sweeps.values())
         merge(stream_errors, errors)
         t0 = time.perf_counter()
         ops_counts, ops_errors = table_op_path(tmp, db, work1)
@@ -2193,6 +2312,8 @@ def main():
     kernels += [kernel_record(f"ksweep_scan.{mode}", SCAN_SOURCE, f"{SCAN_REPLACES}:221",
                               launches[mode], results[mode]) for mode in MODES]
     kernels += [
+        kernel_record("extract_sweep", "khoice_tpu_torch/csrc/extract_sweep.cu",
+                      "khoice_tpu/engine/ksweep.py:142", launches["sweep"], results["sweep"]),
         kernel_record("extract_canonical", "khoice_tpu_torch/csrc/extract_canonical.cu",
                       "khoice_tpu/kernels/extract_pallas.py:86", launches["A"], results["A"]),
         kernel_record("occ_scan.packed", "khoice_tpu_torch/csrc/occ_scan.cu",

@@ -16,134 +16,225 @@
 //              engine/occurrence.py::pack_gid_static of the canonical keys,
 //              fused into the same pass (gids must be < 256, k <= 60).
 //
-// What bounds it on an H100: bytes.  A position reads 1 code byte (8 more
-// for its gid in packed mode) and writes 8 bytes per output word plus 1
-// valid byte; at n = 2^24 and four words that is ~0.17 ms at 3.35 TB/s.
-// The shift registers cost about (k + EPT) / EPT steps per position.
-// What the design does about it:
-//   * each block stages its tile of codes plus a 64-code halo (>= k - 1) in
-//     shared memory, so every code is read from device memory once per
-//     block (the TPU kernel DMA'd a tile plus a 1024-code halo into VMEM);
-//     codes past the end of the array read as 4, so windows that cross it
-//     are invalid, as extract_canonical's padding makes them;
-//   * each thread keeps the forward and reverse-complement registers of
-//     EPT consecutive windows and rolls them one base per window (two
-//     uint64 hold 126 bits; k <= 31 uses one), instead of k pushes per
-//     window as the TPU kernel's unrolled register did;
-//   * results go out word by word through a shared staging buffer (skewed
-//     against bank conflicts), so consecutive threads write consecutive
-//     int64 words: the writes are coalesced.
-// Wider loads of the codes and 32-bit output words are left for later
-// work.
+// What bounds it on an H100: bytes.  A window reads 1 code byte (8 more for
+// its gid in packed mode) and writes 8 bytes per output word plus 1 valid
+// byte; at n = 2^24 and four words that is ~0.17 ms at 3.35 TB/s.  What the
+// design does about it:
+//   * a block stages 16 * NT codes (its tile of TILE windows and a
+//     64-code halo >= k - 1) with one 16-B load per thread (two aligned
+//     loads and a funnel shift where the codes are not 16-B aligned), and
+//     packs them into 32-bit words of 16 bases and a bit mask of invalid
+//     codes in shared memory;
+//   * per window the work does not depend on k: the forward k-mer is a
+//     funnel shift of at most five shared words, its reverse complement
+//     the complemented, 2-bit-reversed bits of the same value (__brevll),
+//     and its validity one test of k mask bits (no k - 1 pushes per
+//     thread, no run counter);
+//   * results go straight from registers: consecutive threads take
+//     consecutive windows, so each warp stores 256 contiguous bytes of a
+//     row (32 of `valid`) per instruction, with no staging buffer and no
+//     barrier after the packing; gids are read coalesced, four windows'
+//     at a time per thread.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 typedef unsigned long long u64;
 
-constexpr int NT = 256;          // threads per block
-constexpr int EPT = 8;           // consecutive windows per thread
-constexpr int TILE = NT * EPT;   // windows per block
-constexpr int HALO = 64;         // codes past the tile, >= k - 1
+constexpr int NT = 256;            // threads per block, one 16-code chunk each
+constexpr int SPAN = 16 * NT;      // codes staged per block
+constexpr int HALO = 64;           // codes past the tile, >= k - 1
+constexpr int TILE = SPAN - HALO;  // windows per block (a multiple of 16)
+constexpr int ITER = (TILE + NT - 1) / NT;  // windows per thread
+constexpr int BATCH = 4;                     // gid loads in flight per thread
 constexpr int MAX_K = 63;
 
-__device__ __forceinline__ int skew(int p) { return p + (p >> 5); }
+// Bytes src[i, i + 16) of an array of n bytes (0 <= i, i + 16 <= n): one
+// 16-B load where src + i is aligned; else two aligned loads and a funnel
+// shift where both lie within the array; else 16 byte loads.
+__device__ __forceinline__ uint4 load16(const unsigned char* __restrict__ src, long long i,
+                                        long long n) {
+  const unsigned off = (unsigned)((uintptr_t)(src + i) & 15u);
+  if (off == 0) return __ldg(reinterpret_cast<const uint4*>(src + i));
+  if (i >= off && i - off + 32 <= n) {
+    const uint4* g = reinterpret_cast<const uint4*>(src + i - off);
+    const uint4 a = __ldg(g), b = __ldg(g + 1);
+    unsigned w0 = a.x, w1 = a.y, w2 = a.z, w3 = a.w, w4 = b.x, w5 = b.y, w6 = b.z, w7 = b.w;
+    if (off & 8) { w0 = w2; w1 = w3; w2 = w4; w3 = w5; w4 = w6; w5 = w7; }
+    if (off & 4) { w0 = w1; w1 = w2; w2 = w3; w3 = w4; w4 = w5; }
+    const unsigned sh = (off & 3) * 8;
+    return make_uint4(__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                      __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh));
+  }
+  unsigned w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    w[q] = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) w[q] |= (unsigned)src[i + 4 * q + b] << (8 * b);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 4 codes (first in the low byte) -> 8 bits of 2-bit bases, the first most
+// significant; *inv gets bit b set where code b >= 4.
+__device__ __forceinline__ unsigned pack4(unsigned v, unsigned* inv) {
+  const unsigned ok = __vcmpltu4(v, 0x04040404u);
+  const unsigned iv = ~ok & 0x01010101u;
+  *inv = (iv | (iv >> 7) | (iv >> 14) | (iv >> 21)) & 0xFu;
+  const unsigned r = __byte_perm(v & 0x03030303u, 0, 0x0123);
+  const unsigned s = (r | (r >> 6)) & 0x000F000Fu;
+  return (s | (s >> 12)) & 0xFFu;
+}
+
+// 16 codes -> one word of 16 bases (the first most significant) and the
+// 16-bit mask of invalid codes (bit b for code b).
+__device__ __forceinline__ unsigned pack16(uint4 v, unsigned* inv16) {
+  unsigned i0, i1, i2, i3;
+  const unsigned word = pack4(v.x, &i0) << 24 | pack4(v.y, &i1) << 16 |
+                        pack4(v.z, &i2) << 8 | pack4(v.w, &i3);
+  *inv16 = i0 | i1 << 4 | i2 << 8 | i3 << 12;
+  return word;
+}
+
+// Reverse the 2-bit groups of x.
+__device__ __forceinline__ u64 rev2(u64 x) {
+  x = __brevll(x);
+  return ((x >> 1) & 0x5555555555555555ull) | ((x & 0x5555555555555555ull) << 1);
+}
 
 __device__ __forceinline__ u64 low_mask(int bits) {  // 0 <= bits <= 64
   return bits >= 64 ? ~0ull : ((1ull << bits) - 1ull);
 }
 
 // Word w (most significant first) of the nw-word value (hi, lo).
-__device__ __forceinline__ unsigned word_of(u64 hi, u64 lo, int nw, int w) {
+__device__ __forceinline__ long long word_of(u64 hi, u64 lo, int nw, int w) {
   const int bit = (nw - 1 - w) * 32;
-  return (unsigned)((bit >= 64 ? hi >> (bit - 64) : lo >> bit) & 0xffffffffull);
+  return (long long)((bit >= 64 ? hi >> (bit - 64) : lo >> bit) & 0xffffffffull);
 }
 
-template <bool WIDE, bool PACK>
+// CW: 32-bit words the forward k-mer spans left-aligned (1: k <= 16,
+// 2: k <= 32, 4: k <= 63).
+template <int CW, bool PACK>
 __global__ void __launch_bounds__(NT)
     extract_kernel(const unsigned char* __restrict__ codes, long long n, int k,
                    const long long* __restrict__ gids, long long* __restrict__ out,
                    int nw, unsigned char* __restrict__ valid) {
-  __shared__ unsigned char s[TILE + HALO];
-  __shared__ unsigned buf[TILE + TILE / 32];
+  __shared__ unsigned S[NT];      // 16 bases per word, position order
+  __shared__ unsigned M[NT / 2];  // bit p % 32 of word p / 32: code p invalid
   const long long t0 = (long long)blockIdx.x * TILE;
-  for (int j = threadIdx.x; j < TILE + HALO; j += NT) {
-    const long long i = t0 + j;
-    s[j] = i < n ? codes[i] : (unsigned char)4;
+  // packed, the gids of BATCH windows per thread are loaded together, the
+  // first batch's before the staging, so that several loads are in flight
+  auto load_gids = [&](int r0, u64* g) {
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = threadIdx.x + (r0 + u) * NT;
+      const long long i = t0 + j;
+      g[u] = PACK && j < TILE && i < n ? (u64)__ldg(gids + i) & 255ull : 0ull;
+    }
+  };
+  u64 g[BATCH];
+  load_gids(0, g);
+  {
+    const long long p0 = t0 + 16 * threadIdx.x;
+    uint4 v;
+    if (p0 + 16 <= n) {
+      v = load16(codes, p0, n);
+    } else {  // the end of the array: codes past it read as 4
+      unsigned w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        w[q] = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const long long p = p0 + 4 * q + b;
+          w[q] |= (p < n ? (unsigned)codes[p] : 4u) << (8 * b);
+        }
+      }
+      v = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    unsigned inv;
+    S[threadIdx.x] = pack16(v, &inv);
+    const unsigned next = __shfl_down_sync(0xffffffffu, inv, 1);
+    if (!(threadIdx.x & 1)) M[threadIdx.x >> 1] = inv | next << 16;
   }
   __syncthreads();
 
   const int k2 = 2 * k;
-  const int base = threadIdx.x * EPT;
-  // forward register: the last k bases, masked to 2k bits; reverse
-  // complement register: complemented bases pushed in at bit 2k - 2
-  u64 fhi = 0ull, flo = 0ull, rhi = 0ull, rlo = 0ull;
-  int run = 0;  // consecutive valid codes ending at the last one pushed
-  auto push = [&](unsigned c) {
-    run = c < 4u ? run + 1 : 0;
-    const u64 d = c & 3u;
-    const u64 comp = d ^ 3ull;
-    if (WIDE) {
-      fhi = ((fhi << 2) | (flo >> 62)) & low_mask(k2 - 64);
-      flo = (flo << 2) | d;
-      rlo = (rlo >> 2) | (rhi << 62);
-      rhi >>= 2;
-      if (k2 - 2 >= 64) rhi |= comp << (k2 - 2 - 64);
-      else rlo |= comp << (k2 - 2);
-    } else {
-      flo = ((flo << 2) | d) & low_mask(k2);
-      rlo = (rlo >> 2) | (comp << (k2 - 2));
-    }
-  };
-  for (int q = 0; q < k - 1; ++q) push(s[base + q]);
-
-  u64 khi[EPT], klo[EPT];
-  bool ok[EPT];
+  for (int r0 = 0; r0 < ITER; r0 += BATCH) {
+    if (PACK && r0) load_gids(r0, g);
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) {
-    push(s[base + k - 1 + e]);
-    const bool fwd_lt = WIDE ? (fhi < rhi || (fhi == rhi && flo < rlo)) : flo < rlo;
-    u64 hi = fwd_lt ? fhi : rhi;
-    u64 lo = fwd_lt ? flo : rlo;
-    ok[e] = run >= k;
-    if (PACK) {
-      const long long i = t0 + base + e;
-      const u64 gid = (ok[e] && i < n) ? (u64)gids[i] & 255ull : 0ull;
-      hi = (hi << 8) | (lo >> 56);
-      lo = (lo << 8) | gid;
-    }
-    khi[e] = ok[e] ? hi : ~0ull;
-    klo[e] = ok[e] ? lo : ~0ull;
-  }
-
-  // word by word through shared memory, so that the writes coalesce
-  for (int w = 0; w <= nw; ++w) {
-    if (w == nw && valid == nullptr) break;
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < EPT; ++e)
-      buf[skew(base + e)] = w < nw ? word_of(khi[e], klo[e], nw, w) : (unsigned)ok[e];
-    __syncthreads();
-    for (int j = threadIdx.x; j < TILE; j += NT) {
+    for (int u = 0; u < BATCH; ++u) {
+      const int j = threadIdx.x + (r0 + u) * NT;
       const long long i = t0 + j;
-      if (i < n) {
-        if (w < nw) out[(long long)w * n + i] = (long long)buf[skew(j)];
-        else valid[i] = (unsigned char)buf[skew(j)];
+      if (j >= TILE || i >= n) break;
+      // the window's forward bases, left-aligned in CW * 32 bits
+      const int q = j >> 4, s = (j & 15) * 2;
+      u64 hi = 0, lo;
+      if (CW == 1) {
+        const u64 f = __funnelshift_l(S[q + 1], S[q], s);
+        const u64 fwd = f >> (32 - k2);
+        const u64 rc = (rev2(~f) >> 32) & low_mask(k2);
+        lo = fwd < rc ? fwd : rc;
+      } else if (CW == 2) {
+        const u64 f = (u64)__funnelshift_l(S[q + 1], S[q], s) << 32 |
+                      __funnelshift_l(S[q + 2], S[q + 1], s);
+        const u64 fwd = f >> (64 - k2);
+        const u64 rc = rev2(~f) & low_mask(k2);
+        lo = fwd < rc ? fwd : rc;
+      } else {
+        const u64 fh = (u64)__funnelshift_l(S[q + 1], S[q], s) << 32 |
+                       __funnelshift_l(S[q + 2], S[q + 1], s);
+        const u64 fl = (u64)__funnelshift_l(S[q + 3], S[q + 2], s) << 32 |
+                       __funnelshift_l(S[q + 4], S[q + 3], s);
+        const int rs = 128 - k2;  // 2..62
+        const u64 fwd_hi = fh >> rs, fwd_lo = fl >> rs | fh << (64 - rs);
+        const u64 rc_hi = rev2(~fl) & low_mask(k2 - 64), rc_lo = rev2(~fh);
+        const bool fwd_lt = fwd_hi < rc_hi || (fwd_hi == rc_hi && fwd_lo < rc_lo);
+        hi = fwd_lt ? fwd_hi : rc_hi;
+        lo = fwd_lt ? fwd_lo : rc_lo;
       }
+      // valid: none of the k mask bits from j set
+      const int qm = j >> 5, sm = j & 31;
+      const u64 bits = (u64)__funnelshift_r(M[qm + 1], M[qm + 2], sm) << 32 |
+                       __funnelshift_r(M[qm], M[qm + 1], sm);
+      const bool ok = (bits & low_mask(k)) == 0;
+      if (PACK) {
+        const u64 gid = ok ? g[u] : 0ull;
+        hi = hi << 8 | lo >> 56;
+        lo = lo << 8 | gid;
+      } else {
+        valid[i] = (unsigned char)ok;
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        if (w < nw) out[(long long)w * n + i] = ok ? word_of(hi, lo, nw, w) : 0xffffffffll;
     }
   }
 }
 
-template <bool WIDE, bool PACK>
+template <int CW, bool PACK>
 int launch(const unsigned char* codes, long long n, int k, const long long* gids,
            long long* out, int nw, unsigned char* valid, cudaStream_t st) {
-  const long long n_tiles = (n + TILE - 1) / TILE;
-  extract_kernel<WIDE, PACK><<<(unsigned)n_tiles, NT, 0, st>>>(codes, n, k, gids, out, nw, valid);
+  const unsigned blocks = (unsigned)((n + TILE - 1) / TILE);
+  extract_kernel<CW, PACK><<<blocks, NT, 0, st>>>(codes, n, k, gids, out, nw, valid);
   return (int)cudaGetLastError();
 }
 
+template <bool PACK>
+int launch_k(const unsigned char* codes, long long n, int k, const long long* gids,
+             long long* out, int nw, unsigned char* valid, cudaStream_t st) {
+  if (k <= 16) return launch<1, PACK>(codes, n, k, gids, out, nw, valid, st);
+  if (k <= 32) return launch<2, PACK>(codes, n, k, gids, out, nw, valid, st);
+  return launch<4, PACK>(codes, n, k, gids, out, nw, valid, st);
+}
+
 }  // namespace
+
+// Windows per block.
+extern "C" int extract_canonical_tile_elems() { return TILE; }
 
 // Keys mode (gids null): out int64 [key_words(k), n], valid uint8 [n].
 // Packed mode (gids int64 [n], each < 256): out int64 [ow, n] with
@@ -163,10 +254,6 @@ extern "C" int extract_canonical_launch(const void* codes, long long n, int k,
   auto* o = static_cast<long long*>(out);
   auto* v = static_cast<unsigned char*>(valid);
   auto st = static_cast<cudaStream_t>(stream);
-  const bool wide = k > 31;
-  if (gids == nullptr)
-    return wide ? launch<true, false>(c, n, k, g, o, n_words, v, st)
-                : launch<false, false>(c, n, k, g, o, n_words, v, st);
-  return wide ? launch<true, true>(c, n, k, g, o, n_words, v, st)
-              : launch<false, true>(c, n, k, g, o, n_words, v, st);
+  return gids == nullptr ? launch_k<false>(c, n, k, g, o, n_words, v, st)
+                         : launch_k<true>(c, n, k, g, o, n_words, v, st);
 }

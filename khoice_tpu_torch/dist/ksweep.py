@@ -7,9 +7,9 @@ sort) over the ranks:
 - the packed members are cut into one slab per rank with a kmax-1 halo;
   each rank builds its LOCAL doubled text (slab ++ revcomp(slab)) and
   extracts the forward kmax-mer elements of its own windows on both
-  strands (engine/ksweep.py::_extract_fwd_sweep, plain torch as on one
-  device); rank 0 owns its whole reverse-complement half, which holds
-  the first kmax-k rc k-mers of the text for each k;
+  strands (kernels/extract_sweep.py::doubled_elements, the extraction
+  kernel as on one device); rank 0 owns its whole reverse-complement
+  half, which holds the first kmax-k rc k-mers of the text for each k;
 - elements no k of the class can use (nio < kmin) are dropped, the rest
   sorted (the radix sort) and (key, gid, nio)-deduped, except in exp4's
   "buckets" mode, which sums pivot multiplicities;
@@ -86,22 +86,19 @@ def local_sweep_bytes(slab_len: int, KW: int, packed: bool) -> int:
     gids (9 B per position) included, over n2 = 2 * slab_len doubled-text
     elements of n_ops = KW (+1 unpacked) int64 rows, for any number of
     kept and deduped elements (<= n2).  The largest of, in turn:
-      the extraction (engine/ksweep.py::_extract_fwd_sweep): the forward
-      words beside the doubled codes and gids, their padded copy and
-      validity, the running word, the invalid positions, the index, nio
-      and two temporaries                                 (8 KW + 56) n2
       the slab, the words and payload, the keep mask, the kept
       positions and the compacted rows         9 L + (8 n_ops + 8 n_ops + 9) n2
       the sort of the compacted rows, input included  9 L + _sort_bytes(n2, n_ops)
       the dedupe (the sorted rows, their starts and two compare rows, the
       deduped copy) and the element-major copy for the exchange
                                                       9 L + (16 n_ops + 3) n2
-    The sort bounds the last two (20 n_ops + 1 > 16 n_ops + 9 for
-    n_ops >= 2)."""
+    The sort bounds the other two (20 n_ops + 1 > 16 n_ops + 9 for
+    n_ops >= 2).  The extraction (kernels/extract_sweep.py::doubled_elements)
+    allocates only its words and payload, which the keep step's line
+    holds."""
     n2 = 2 * slab_len
     n_ops = KW + (0 if packed else 1)
-    return (max((8 * KW + 56) * n2, 9 * slab_len + _sort_bytes(n2, n_ops))
-            + _ALLOCATOR_SLACK)
+    return 9 * slab_len + _sort_bytes(n2, n_ops) + _ALLOCATOR_SLACK
 
 
 def merge_sweep_bytes(n_recv: int, KW: int, packed: bool, sent_bytes: int) -> int:

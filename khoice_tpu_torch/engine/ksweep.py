@@ -28,17 +28,16 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..kernels.ksweep_scan import (  # noqa: F401  (scan_multi_k_reference re-exported)
+from ..kernels.ksweep_scan import (  # noqa: F401  (PACK_NIO_BITS, scan_multi_k_reference re-exported)
     MASK_MEMBERS,
-    NIO_BITS,
     PACK_GID_BITS,
     PACK_MIN_SPARE,
     PACK_NIO_BITS,
-    _U32,
     scan_multi_k,
     scan_multi_k_reference,
 )
 from ..kernels.extract import occ_words_static
+from ..kernels.extract_sweep import doubled_elements, extract_fwd_sweep
 from ..kernels.sort import sort_words
 from ..utils.logging import get_logger
 from .occurrence import occurrence_histogram_packed, pack_members
@@ -118,69 +117,18 @@ def plan_sweep(ks: Sequence[int], n_members: int,
     return split_classes, split_rest
 
 
-def _extract_fwd_sweep(codes2: torch.Tensor, gids2: torch.Tensor, kmax: int,
-                       KW: int, packed: bool = False):
-    """Forward kmax-mer keys (int64 [KW, n], left-aligned) and payload.
-
-    codes2: uint8 [n] codes (4 = invalid); gids2: int64 [n].  Word w of
-    position i packs bases [i+16w, i+16w+16), so one 16-base packing of
-    an extended range yields every word as a slice.  nio (consecutive
-    valid bases from i, capped at kmax) is the distance to the next
-    invalid position.  Bases at invalid positions pack as 0; bases after
-    one inside the window keep their values, which no k <= nio ever
-    reads.
-
-    packed=False: payload = (gid << 8) | nio, returned separately.
-    packed=True: (gid << 6) | nio ORed into the last word's spare bits
-    (requires can_pack_payload(kmax, KW)); payload None."""
-    n = codes2.shape[0]
-    dev = codes2.device
-    m = n + 16 * (KW - 1)
-    cp = torch.cat([codes2, torch.full((16 * KW,), 4, dtype=codes2.dtype, device=dev)])
-    valid = cp < 4
-    w = torch.where(valid, cp.to(torch.int64) & 3, 0)
-    # pairs -> quads -> bytes -> 16-base words; w[i] packs 2^s bases from i
-    for s in range(4):
-        span = 1 << s
-        w = (w[: w.shape[0] - span] << (2 * span)) | w[span:]
-    w = w[:m]
-    fwd = torch.stack([w[16 * wi: 16 * wi + n] for wi in range(KW)])
-    del w
-    spare = _pack_spare(kmax, KW)
-    if spare:
-        fwd[-1] &= (_U32 >> spare) << spare
-    # nio from the next invalid position at or after i: a binary search
-    # in the sorted invalid positions (the padding guarantees one), the
-    # exact equivalent of the JAX package's reverse cummin.  On an H100,
-    # torch.cummin had taken 750 ms over the five sweeps of a 4 x 8 x 2 Mbp
-    # exp1 run (~256M elements), and the whole extraction with it 104 ms
-    # at 33.6M elements.
-    inv = torch.nonzero(~valid).squeeze(1)
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
-    nio = torch.clamp(inv[torch.searchsorted(inv, idx)] - idx, max=kmax)
-    if packed:
-        if not can_pack_payload(kmax, KW):
-            raise ValueError(f"payload does not fit the spare bits of kmax={kmax}, KW={KW}")
-        fwd[-1] |= (gids2 << PACK_NIO_BITS) | nio
-        return fwd, None
-    return fwd, (gids2 << NIO_BITS) | nio
-
-
-def _doubled_elements(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
-                      KW: int, packed: bool):
-    """Doubled text (codes ++ revcomp) -> its forward kmax-mer elements,
-    unsorted: (int64 [KW, n2] words, payload or None)."""
-    rc = torch.where(codes < 4, codes ^ 3, codes).flip(0)
-    codes2 = torch.cat([codes, rc])
-    gids2 = torch.cat([gids, gids.flip(0)])
-    return _extract_fwd_sweep(codes2, gids2, kmax, KW, packed=packed)
+# The sweep's extraction (kernels/extract_sweep.py: the CUDA kernel on the
+# card, its plain version on the CPU) under this module's names, which
+# the streaming sweep, the sharded sweep and the tools call.
+_extract_fwd_sweep = extract_fwd_sweep
+_doubled_elements = doubled_elements
 
 
 def _sweep_doubled(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
                    KW: int, packed: bool):
     """The doubled text's elements as ONE sorted array: (int64 [KW, n2]
     words, payload or None)."""
-    return sort_words(*_doubled_elements(codes, gids, kmax, KW, packed))
+    return sort_words(*doubled_elements(codes, gids, kmax, KW, packed))
 
 
 def occurrence_histograms_sweep_packed(

@@ -116,7 +116,7 @@ def incore_sweep_bytes(total_positions: int, ks: Sequence[int], n_members: int) 
     group whose packed text (members + separators) spans `total_positions`:
     the largest class sort over n2 = 2 * total_positions elements beside
     the group's resident codes and gids (the doubled text's extraction
-    frees its temporaries before the sort)."""
+    allocates only its words and payload, the sort's input)."""
     classes, _rest = plan_sweep(ks, n_members)
     n2 = 2 * total_positions
     worst = 0
@@ -378,7 +378,7 @@ def _chunk_step(d_codes: torch.Tensor, member_starts: torch.Tensor, bufs: list, 
     orig = torch.where(pos < n, pos, 2 * n - 1 - pos).clamp(0, n - 1)
     gids = torch.searchsorted(member_starts, orig, right=True) - 1
     del pos, orig
-    fwd, _ = _extract_fwd_sweep(d_codes[start:start + C + H], gids, kmax, KW, packed=True)
+    fwd, _ = _extract_fwd_sweep(d_codes[start:start + C + H], gids, kmax, KW, True)
     del gids
     # the halo's elements belong to the next chunk: a zero nio makes them
     # sentinels, as the invalid ones

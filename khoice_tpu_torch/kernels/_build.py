@@ -44,6 +44,12 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]),
+    "extract_canonical_tile_elems": (ctypes.c_int, []),
+    "extract_sweep_tile_elems": (ctypes.c_int, []),
+    "extract_sweep_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]),
     "radix_sort_tile_elems": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
     "radix_sort_first_pass": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Variants of a CUDA source of the port timed in turns against it.
 
-    python tools/sort_variants.py [--kernel sort|scan|occ] [--reps 10]
-                                  [--parent DIR]
+    python tools/sort_variants.py [--kernel sort|scan|occ|extract|sweep]
+                                  [--reps 10] [--parent DIR]
 
 --kernel sort (the default): `khoice_tpu_torch/csrc/radix_sort.cu`;
 --kernel scan: `khoice_tpu_torch/csrc/ksweep_scan.cu`; --kernel occ:
-`khoice_tpu_torch/csrc/occ_scan.cu` (kernels B and C).  Each variant is
+`khoice_tpu_torch/csrc/occ_scan.cu` (kernels B and C); --kernel extract:
+`khoice_tpu_torch/csrc/extract_canonical.cu` (kernel A); --kernel sweep:
+`khoice_tpu_torch/csrc/extract_sweep.cu`.  Each variant is
 the source with a few lines replaced (SORT_VARIANTS, SCAN_VARIANTS,
-OCC_VARIANTS), compiled alone with nvcc into a temporary directory and
+OCC_VARIANTS, EXTRACT_VARIANTS, SWEEP_VARIANTS), compiled alone with
+nvcc into a temporary directory and
 loaded in place of the port's library for the kernel's wrapper
-(`kernels/sort.py`, `kernels/ksweep_scan.py`, `kernels/occ_scan.py`),
+(`kernels/sort.py`, `kernels/ksweep_scan.py`, `kernels/occ_scan.py`,
+`kernels/extract.py`, `kernels/extract_sweep.py`),
 all in one process on one card.  The shapes are those of
 `chip_smoke.py` phase 3: for the sort the bench class, the unpacked
 class, the per-k packed words at k = 31 and 49 and a 2^24-key table
@@ -19,12 +23,20 @@ and unpacked occ shapes and the 63-member containment, and occ and
 buckets over 8 related members (1% SNPs, as the generated databases'
 groups); for occ, B on the sorted packed words of 96 x 2^20 at k = 31
 and 49 and of 96 related members (exp1's groups on 2 x 96) at k = 31,
-and C on 300 x 2^16 at k = 31.  `--parent DIR` adds the variant
-"parent": DIR/khoice_tpu_torch/csrc/occ_scan.cu of the three-pass
+and C on 300 x 2^16 at k = 31; for extract, A on 2^24 codes at k = 7,
+15, 16, 31, 32, 49 and 63 (keys, and gid-packed to k = 49) and on 2.0M
+codes (a table op's call) at k = 7, 15, 21, 31 and 49; for sweep, the
+doubled bench class, the doubled unpacked class, a streamed chunk
+(direct, at an unaligned offset) and the doubled 96 x 2^20 text.
+`--parent DIR` adds the variant "parent": with --kernel occ
+DIR/khoice_tpu_torch/csrc/occ_scan.cu of the three-pass
 kernel's tree (commit 54bd19a, unpacked with `git archive`; a source
 with another C signature is refused), called through that signature
 (its tile arrays), and "parent_3blocks", the same with at most 3
-blocks an SM (PARENT_VARIANTS).  Each
+blocks an SM (PARENT_VARIANTS); with --kernel extract
+DIR/khoice_tpu_torch/csrc/extract_canonical.cu of any tree whose
+extract_canonical_launch has the committed signature (kernel A before
+its redesign: commit bbbc043), called through the same wrapper.  Each
 shape times every variant twice, in the order committed, variants,
 variants reversed, committed (CUDA events over `--reps` calls); a
 variant that keeps the function must give the committed kernel's result
@@ -32,7 +44,9 @@ bit for bit.  The ablations (x_*) drop a part of the kernel to show what
 it costs: their results are wrong, and a sort ablation runs only where
 that cannot write out of bounds (no all-ones elements).  Also prints,
 for the sort, the committed kernel's ms per sort by kernel
-(torch.profiler), and the card's name and power limit.
+(torch.profiler), for extract and sweep each variant's device time per
+launch (torch.profiler, after its turns), and the card's name and power
+limit.
 """
 
 import argparse
@@ -184,14 +198,35 @@ PARENT_VARIANTS = {
         ("  const int smem = n_bins * (int)sizeof(unsigned);",
          "  const int smem = n_bins * (int)sizeof(unsigned) + 72 * 1024;")],
 }
+# the extraction kernels' lines that the variants replace (both sources)
+EX_NT = "constexpr int NT = 256; "
+EX_BATCH = "constexpr int BATCH = 4; "
+EX_VARIANTS = {
+    # blocks of 128 or 512 threads: tiles of 2048 - 64 or 8192 - 64 windows
+    "nt_128": ([(EX_NT, "constexpr int NT = 128; ")], True, None),
+    "nt_512": ([(EX_NT, "constexpr int NT = 512; ")], True, None),
+    # one gid load in flight per thread: what the batches buy
+    "batch_1": ([(EX_BATCH, "constexpr int BATCH = 1; ")], True, None),
+}
+EXTRACT_VARIANTS = EX_VARIANTS
+SWEEP_VARIANTS = EX_VARIANTS
+# source, variants, C entry points, the kernel's name in a profiler trace
 KERNELS = {
     "sort": ("radix_sort.cu", SORT_VARIANTS,
-             ("radix_sort_tile_elems", "radix_sort_first_pass", "radix_sort_passes")),
+             ("radix_sort_tile_elems", "radix_sort_first_pass", "radix_sort_passes"), None),
     "scan": ("ksweep_scan.cu", SCAN_VARIANTS,
              ("ksweep_scan_tile_elems", "ksweep_scan_max_ks", "ksweep_scan_hist_bytes_max",
-              "ksweep_scan_launch")),
+              "ksweep_scan_launch"), None),
     "occ": ("occ_scan.cu", OCC_VARIANTS,
-            ("occ_scan_tile_elems", "occ_scan_bins_max", "occ_scan_launch")),
+            ("occ_scan_tile_elems", "occ_scan_bins_max", "occ_scan_launch"), None),
+    "extract": ("extract_canonical.cu", EXTRACT_VARIANTS, ("extract_canonical_launch",),
+                "extract_kernel"),
+    "sweep": ("extract_sweep.cu", SWEEP_VARIANTS, ("extract_sweep_launch",), "sweep_tiles"),
+}
+# the declaration a parent's source must hold: occ's three-pass kernel
+# (its own signature), or kernel A's committed one
+PARENT_DECL = {
+    "extract": 'extern "C" int extract_canonical_launch(const void* codes, long long n, int k,',
 }
 # the parent's occ_scan_launch: (words, gid, n, W, packed, cs, n_bins,
 # tile_f, tile_c, carry, hist, stream), and the text that declares it
@@ -208,7 +243,7 @@ def build(tmp: str, kernel: str, parent: str | None = None) -> dict:
     (and the parent's source, from `parent`), compiled in parallel."""
     from khoice_tpu_torch.kernels import _build
 
-    source, variants, symbols = KERNELS[kernel]
+    source, variants, symbols, _ = KERNELS[kernel]
     src_path = os.path.join(CSRC, source)
     with open(src_path) as fd:
         committed = fd.read()
@@ -225,11 +260,12 @@ def build(tmp: str, kernel: str, parent: str | None = None) -> dict:
         parent_csrc = os.path.join(parent, "khoice_tpu_torch", "csrc")
         with open(os.path.join(parent_csrc, source)) as fd:
             sources["parent"] = fd.read()
-        if sources["parent"].count(PARENT_OCC_DECL) != 1:
-            raise SystemExit(f"--parent: {parent_csrc}/{source} is not the three-pass kernel "
-                             "(commit 54bd19a), whose C signature this option calls")
+        decl = PARENT_DECL.get(kernel, PARENT_OCC_DECL)
+        if sources["parent"].count(decl) != 1:
+            raise SystemExit(f"--parent: {parent_csrc}/{source} does not declare the C "
+                             f"signature this option calls ({decl!r})")
         include["parent"] = parent_csrc
-        for name, subs in PARENT_VARIANTS.items():
+        for name, subs in (PARENT_VARIANTS if kernel == "occ" else {}).items():
             src = sources["parent"]
             for old, new in subs:
                 if src.count(old) != 1:
@@ -257,7 +293,7 @@ def build(tmp: str, kernel: str, parent: str | None = None) -> dict:
         lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
         for fn in symbols:
             getattr(lib, fn).restype, getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-        if name.startswith("parent"):
+        if name.startswith("parent") and kernel == "occ":
             lib.occ_scan_launch.restype, lib.occ_scan_launch.argtypes = PARENT_OCC_SIGNATURE
         libs[name] = lib
     return libs
@@ -379,6 +415,57 @@ def occ_shapes(dev) -> dict:
     return out
 
 
+def extract_shapes(dev) -> dict:
+    """{label: (the wrapper, its arguments)} at phase 3's kernel-A shapes
+    (the same draws of the same generators)."""
+    import chip_smoke
+    import khoice_tpu_torch.engine  # noqa: F401  (before kernels.extract, which it imports)
+    from khoice_tpu_torch.kernels import extract
+
+    rng = np.random.default_rng(0)
+    chip_smoke.random_members(rng, 8, 1 << 21)
+    chip_smoke.random_members(rng, 96, 1 << 20)
+    for count, length in ((64, 1 << 16), (4, 1 << 21), (63, 1 << 15)):
+        chip_smoke.random_members(rng, count, length)
+    codes = torch.from_numpy(chip_smoke.random_members(rng, 1, 1 << 24)[0]).to(dev)
+    gids = torch.from_numpy(rng.integers(0, 256, 1 << 24)).to(dev)
+    out = {}
+    for k in (7, 15, 16, 31, 32, 49, 63):
+        out[f"A keys 2^24 k={k}"] = (extract.extract_canonical, (codes, k))
+        if k <= 49:
+            out[f"A packed 2^24 k={k}"] = (extract.extract_packed, (codes, gids, k))
+    small = torch.from_numpy(chip_smoke.random_members(np.random.default_rng(12), 1,
+                                                       2_000_000)[0]).to(dev)
+    for k in (7, 15, 21, 31, 49):
+        out[f"A keys 2.0M k={k}"] = (extract.extract_canonical, (small, k))
+    return out
+
+
+def sweep_shapes(dev) -> dict:
+    """{label: (the wrapper, its arguments)} at phase 3's shapes of the
+    sweep's extraction (the same draws of the same generator)."""
+    import chip_smoke
+    from khoice_tpu_torch.engine.occurrence import pack_members
+    from khoice_tpu_torch.kernels import extract_sweep as kxs
+
+    rng = np.random.default_rng(0)
+    bench = chip_smoke.random_members(rng, 8, 1 << 21)
+    members96 = chip_smoke.random_members(rng, 96, 1 << 20)
+    members96[0] = np.concatenate([members96[0], np.zeros(100_000, np.uint8)])
+    codes, gids = pack_members(bench, dev)
+    d_codes = torch.cat([codes, torch.where(codes < 4, codes ^ 3, codes).flip(0)])
+    chunk = d_codes[12345:12345 + (1 << 23) + 48]
+    out = {
+        "bench class (kmax 49, KW 4, packed)": (kxs.doubled_elements, (codes, gids, 49, 4, True)),
+        "unpacked class (kmax 30, KW 2)": (kxs.doubled_elements, (codes, gids, 30, 2, False)),
+        "streamed chunk (direct)": (kxs.extract_fwd_sweep, (
+            chunk, torch.arange(chunk.shape[0], device=dev) % 8, 49, 4, True)),
+    }
+    codes, gids = pack_members(members96, dev)
+    out["96x2^20 (kmax 30, KW 2)"] = (kxs.doubled_elements, (codes, gids, 30, 2, False))
+    return out
+
+
 def parent_occ(lib, words, *rest):
     """The parent's kernel B or C through its own C signature (its tile
     summaries, carries and hist), as its wrapper called it."""
@@ -400,7 +487,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="sort")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--parent", help="a tree whose occ_scan.cu is timed as 'parent' (--kernel occ)")
+    ap.add_argument("--parent", help="a tree whose occ_scan.cu (--kernel occ) or "
+                    "extract_canonical.cu (--kernel extract) is timed as 'parent'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -410,21 +498,26 @@ def main():
 
     print(chip_smoke.smi_line(), flush=True)
     dev = torch.device("cuda")
-    variants = KERNELS[args.kernel][1]
+    variants, profiled = KERNELS[args.kernel][1], KERNELS[args.kernel][3]
     load = _build.load
     load()  # the port's library: the shapes' extraction and sort kernels
     if args.kernel == "sort":
         cases = {label: (ksort.sort_words, inputs) for label, inputs in sort_shapes(dev).items()}
     elif args.kernel == "scan":
         cases = scan_shapes(dev)
-    else:
+    elif args.kernel == "occ":
         cases = occ_shapes(dev)
-    parent = args.parent if args.kernel == "occ" else None
+    elif args.kernel == "extract":
+        cases = extract_shapes(dev)
+    else:
+        cases = sweep_shapes(dev)
+    parent = args.parent if args.kernel in ("occ", "extract") else None
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(tmp, args.kernel, parent)
         if parent:
             variants = dict(variants, parent=([], True, None),
-                            **{name: ([], True, None) for name in PARENT_VARIANTS})
+                            **{name: ([], True, None) for name in PARENT_VARIANTS
+                               if args.kernel == "occ"})
         try:
             for label, (wrapper, inputs) in cases.items():
                 run = ["committed"] + [n for n, (_, _, only) in variants.items()
@@ -435,7 +528,7 @@ def main():
                     for name in order:
                         _build.load = lambda name=name: libs[name]
                         fn = (lambda *a, lib=libs[name]: parent_occ(lib, *a)) \
-                            if name.startswith("parent") else wrapper
+                            if name.startswith("parent") and args.kernel == "occ" else wrapper
                         got = fn(*inputs)
                         got = got if isinstance(got, tuple) else (got,)
                         torch.cuda.synchronize()
@@ -451,8 +544,16 @@ def main():
                 if args.kernel == "sort":
                     wrapper(*inputs)
                     head = f"{label} ({len(ksort.last_plan[0])} passes)"
+                device = {}
+                if profiled:
+                    for name in run:
+                        _build.load = lambda name=name: libs[name]
+                        device[name] = chip_smoke.device_ms(lambda: wrapper(*inputs), profiled,
+                                                            args.reps)
+                    _build.load = lambda: libs["committed"]
                 print(f"{head}: " + ", ".join(
-                    f"{name} {np.mean(t):.3f} ms ({t[0]:.3f} / {t[1]:.3f})"
+                    f"{name} {np.mean(t):.3f} ms ({t[0]:.3f} / {t[1]:.3f}"
+                    + (f"; device {device[name]:.4f}" if device.get(name) else "") + ")"
                     for name, t in times.items()), flush=True)
                 if args.kernel == "sort":
                     split = split_ms(wrapper, *inputs, args.reps)
