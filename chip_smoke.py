@@ -59,10 +59,16 @@ Phases (any failure raises, so the exit code is non-zero):
        datasets x 2^24 text positions (one with a poly-A tract) and 2^23
        read positions at k = 7, 21, 33, 49 (W 1, 2, 4, 4) and on edge
        cases (no query, no text element, runs of queries only, a run
-       over 3 tiles, queries at tile edges, the SENTINEL run; W 1 and
-       4); read_votes on 2^14 ONT-like rows of 1001 and 2^16
-       Illumina-like rows of 151 at D = 4 and 32; each one's time over
-       its bound is printed.
+       over 3 tiles, queries at tile edges, the SENTINEL run, spans of
+       texts only, a run open at a span's start whose queries lie in
+       later spans, a poly-A run of 3 tiles of queries, queries first
+       and last in spans; W 1 and 4, even and odd n; half the query
+       positions absent, as on a rank of the sharded votes);
+       read_votes on 2^14 ONT-like rows of 1001 and 2^16 Illumina-like
+       rows of 151 at D = 4 and 32 (random masks), and at D = 4 on the
+       k = 21 join's masks as rows of 151 and 1001, and on edge cases
+       (D 1-32, rows of 0-1001 windows from an unaligned start, D = 32's
+       largest sums); each shape's time over its bound is printed.
   4. main paths through the port's CLI entry point:
      a. on a generated 4 datasets x 8 genomes x 2 Mbp database:
         `run --exp-type 1`, then 2, 3 and 4 in one work root (exp0 runs
@@ -246,7 +252,8 @@ def build():
     name, spill, kernels = None, 0, {}
     for line in _build.build_log().splitlines():
         m = re.search(r"entry function '.*?(occ_tiles|scan_tiles|extract_kernel|sweep_tiles"
-                      r"|(?:first|middle|last)_pass_kernel|vote_mask_tiles|read_votes_rows)",
+                      r"|(?:first|middle|last)_pass_kernel|vote_mask_tiles|vote_mask_fill"
+                      r"|read_votes_rows)",
                       line)
         if m:
             name = m.group(1)
@@ -313,11 +320,12 @@ def max_err(got, want):
 
 
 def device_ms(fn, kernel, reps=10):
-    """Mean device time of the CUDA kernel whose name holds `kernel` per
-    launch, from torch.profiler's trace of `reps` calls of fn (one launch
-    each; the wrapper's host time left out): the trace's total over the
-    launches it recorded, which can be fewer than `reps` (the tracer drops
-    records now and then); None where it recorded none."""
+    """Device time of one call of fn, from torch.profiler's trace of `reps`
+    calls (the wrapper's host time left out): for each CUDA kernel whose
+    name holds `kernel` (a name, or a tuple of the names of the kernels a
+    call launches once each), the trace's total over the launches it
+    recorded, which can be fewer than `reps` (the tracer drops records now
+    and then), summed over the names; None where it recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -326,9 +334,14 @@ def device_ms(fn, kernel, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    us, count = sum(getattr(e, "device_time_total", 0) for e in rows), sum(e.count for e in rows)
-    return us / count / 1e3 if us and count else None
+    total = None
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        rows = [e for e in prof.key_averages() if name in e.key]
+        us = sum(getattr(e, "device_time_total", 0) for e in rows)
+        count = sum(e.count for e in rows)
+        if us and count:
+            total = (total or 0.0) + us / count / 1e3
+    return total
 
 
 def compare(label, kern, plain, args, plain_reps=2, kern_reps=10, profiled=None):
@@ -686,13 +699,17 @@ def vote_edge(rng, W, D, runs):
     return words, torch.from_numpy(np.concatenate(pay).astype(np.int64)).to(dev), nq
 
 
-def vote_kernels_vs_plain(rng):
-    """vote_mask on exp6's merge-join of 4 related datasets x 2^24 text
+def vote_shapes(rng):
+    """Phase 3's vote shapes, one at a time (label, wrapper name, args,
+    whether the kernels line reports it):
+    vote_mask on the merge-join of 4 related datasets x 2^24 text
     positions (one with a poly-A tract: runs over many tiles) and 2^23
-    read positions at k = 7, 21, 33, 49 (W 1, 2, 4, 4), its edge cases,
-    and read_votes on ONT- and Illumina-like rows at D = 4 and 32."""
+    read positions at k = 7, 21, 33, 49 (W 1, 2, 4, 4); read_votes on
+    2^14 ONT-like rows of 1001 and 2^16 Illumina-like rows of 151 at D =
+    4 and 32 (random masks: 16 of 32 bits set on average), then at D = 4
+    on the masks that exp6 really gets, the plain vote_mask of the k = 21
+    join with its validity, as rows of 151 (the reads) and of 1001."""
     from khoice_tpu_torch.classify import annotate
-    from khoice_tpu_torch.kernels import _build
     from khoice_tpu_torch.kernels import vote as kvote
 
     dev = torch.device("cuda")
@@ -713,37 +730,16 @@ def vote_kernels_vs_plain(rng):
     codes, gids = annotate.pack_group_texts(groups, dev)
     flat, _, _ = annotate.flat_reads_device(reads, dev)
     del groups, reads
-    results, errs = {}, []
+    nq = flat.shape[0]
+    real = None
     for k in (7, 21, 33, 49):
-        sw, sp, _ = annotate._merge_join(codes, gids, flat, k, 4)
-        nq = flat.shape[0]
-        r = compare(f"vote_mask 4 x 2^24 + {nq} queries W={sw.shape[0]} k={k} n={sw.shape[1]}",
-                    lambda: kvote.vote_mask(sw, sp, 4, nq),
-                    lambda: kvote.vote_mask_reference(sw, sp, 4, nq), (sw, sp),
-                    profiled="vote_mask_tiles")
-        errs.append(r["max_abs_err"])
+        sw, sp, qvalid = annotate._merge_join(codes, gids, flat, k, 4)
+        yield (f"vote_mask 4 x 2^24 + {nq} queries W={sw.shape[0]} k={k} n={sw.shape[1]}",
+               "vote_mask", (sw, sp, 4, nq), k == 21)
         if k == 21:
-            results["vote_mask"] = r
-        del sw, sp
+            real = (kvote.vote_mask_reference(sw, sp, 4, nq), qvalid)
+        del sw, sp, qvalid
     del codes, gids, flat
-    tile = _build.load().vote_mask_tile_elems()
-    for label, runs in (
-            ("no query", [(1, 5, 0)] * 200),
-            ("no text element", [(1, 0, int(q)) for q in rng.integers(1, 30, 2000)]),
-            ("runs of queries only", [(1, 0, 7), (1, 3, 0), (1, 2, 2)] * 1000),
-            ("a run over 3 tiles", [(1, 5, 3)] * 10 + [(1, tile + 17, 2 * tile)] + [(1, 3, 4)] * 900),
-            ("queries at tile edges", [(1, tile - 1, 1), (1, 1, 1), (1, tile - 3, 2), (1, 2, 2)] * 3),
-            ("the SENTINEL run", [(1, 4, 4)] * 100 + [(None, 100, 3 * tile)])):
-        for W in (1, 4):
-            words, pay, nq = vote_edge(rng, W, 4, runs)
-            got, want = kvote.vote_mask(words, pay, 4, nq), kvote.vote_mask_reference(words, pay, 4, nq)
-            errs.append(max_err(got, want))
-            if errs[-1]:
-                raise AssertionError(f"vote_mask {label} W={W}: kernel != plain ({errs[-1]})")
-        print(f"vote_mask {label} (W 1 and 4, n={words.shape[1]}, {nq} queries, "
-              f"{int((want != 0).sum())} matched): equal", flush=True)
-    results["vote_mask"]["max_abs_err"] = max(errs)
-    errs = []
     for label, R, L in (("ONT-like", 1 << 14, 1001), ("Illumina-like", 1 << 16, 151)):
         for D in (4, 32):
             n = R * L
@@ -751,18 +747,128 @@ def vote_kernels_vs_plain(rng):
             qmask[torch.from_numpy(rng.random(n) < 0.3).to(dev)] = 0
             valid = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
             rows = torch.arange(R + 1, device=dev) * L
-            lcm = math.lcm(*range(1, D + 1))
-            r = compare(f"read_votes {label} {R} rows of {L} D={D}",
-                        lambda: kvote.read_votes(qmask, valid, rows, D, lcm),
-                        lambda: kvote.read_votes_reference(qmask, valid, rows, D, lcm),
-                        (qmask, valid, rows), profiled="read_votes_rows")
-            errs.append(r["max_abs_err"])
-            if (label, D) == ("ONT-like", 4):
-                results["read_votes"] = r
-    results["read_votes"]["max_abs_err"] = max(errs)
-    print("vote kernels' time over their bound: " + ", ".join(
-        f"{key} {results[key]['ms'] / results[key]['bound_ms']:.1f}x"
-        for key in ("vote_mask", "read_votes")), flush=True)
+            yield (f"read_votes {label} {R} rows of {L} D={D}", "read_votes",
+                   (qmask, valid, rows, D, math.lcm(*range(1, D + 1))), (L, D) == (1001, 4))
+            del qmask, valid
+    qmask, qvalid = real
+    for L in (151, 1001):
+        R = nq // L
+        yield (f"read_votes exp6 masks (k=21) {R} rows of {L} D=4", "read_votes",
+               (qmask, qvalid, torch.arange(R + 1, device=dev) * L, 4, 12), False)
+
+
+def vote_mask_edges(rng, tile):
+    """vote_mask's edge cases, each at W 1 and 4 (and n + 1, an odd n: the
+    rows of words 1 and 3 then take 8-B loads): largest difference from
+    the plain version."""
+    from khoice_tpu_torch.kernels import vote as kvote
+
+    span = tile // 8  # a tile is 8 warps' spans
+    errs = []
+    for label, runs in (
+            ("no query", [(1, 5, 0)] * 200),
+            ("no text element", [(1, 0, int(q)) for q in rng.integers(1, 30, 2000)]),
+            ("runs of queries only", [(1, 0, 7), (1, 3, 0), (1, 2, 2)] * 1000),
+            ("a run over 3 tiles", [(1, 5, 3)] * 10 + [(1, tile + 17, 2 * tile)] + [(1, 3, 4)] * 900),
+            ("queries at tile edges", [(1, tile - 1, 1), (1, 1, 1), (1, tile - 3, 2), (1, 2, 2)] * 3),
+            ("the SENTINEL run", [(1, 4, 4)] * 100 + [(None, 100, 3 * tile)]),
+            ("spans of texts only", [(1, 3, 0)] * span + [(1, 2, 2)] * 20 + [(1, span + 5, 0)]
+             + [(1, 1, 1)] * 30),
+            ("a run open at a span's start, queries in later spans",
+             [(1, 1, 1)] * 40 + [(1, span + 40, 3 * span + 7)] + [(1, 2, 1)] * 100
+             + [(1, tile - 3, 2 * tile)] + [(1, 1, 2)] * 50),
+            ("a poly-A run of 3 tiles of queries", [(1, 3, 2)] * 7 + [(1, 40, 3 * tile + 5)]
+             + [(1, 1, 1)] * 20),
+            ("queries first and last in spans", [(1, span - 2, 1), (1, 0, 1), (1, 1, 1)] * 3
+             + [(1, span - 1, 1), (1, 1, 0)] * 3 + [(1, 3, 3)] * 200)):
+        for W in (1, 4):
+            words, pay, nq = vote_edge(rng, W, 4, runs)
+            for w, p in ((words, pay), (torch.cat([torch.zeros_like(words[:, :1]), words], 1),
+                                        torch.cat([torch.zeros_like(pay[:1]), pay]))):
+                got, want = kvote.vote_mask(w, p, 4, nq), kvote.vote_mask_reference(w, p, 4, nq)
+                errs.append(max_err(got, want))
+                if errs[-1]:
+                    raise AssertionError(f"vote_mask {label} W={W} n={w.shape[1]}: kernel != "
+                                         f"plain ({errs[-1]})")
+        print(f"vote_mask {label} (W 1 and 4, n={words.shape[1]} and + 1, {nq} queries, "
+              f"{int((want != 0).sum())} matched): equal", flush=True)
+    # a rank of the sharded votes: half the query positions absent, kept 0
+    words, pay, nq = vote_edge(rng, 2, 32, [(1, int(t), int(q)) for t, q in
+                                            rng.integers(0, 9, (20000, 2))])
+    keep = torch.from_numpy(np.sort(rng.permutation(2 * nq)[:nq])).to(pay.device)
+    pay = torch.where(pay >= 32, 32 + keep[(pay - 32).clamp(0, nq - 1)], pay)
+    got, want = kvote.vote_mask(words, pay, 32, 2 * nq), kvote.vote_mask_reference(words, pay, 32, 2 * nq)
+    absent = torch.ones(2 * nq, dtype=torch.bool, device=pay.device)
+    absent[keep] = False
+    errs.append(max_err(got, want))
+    if errs[-1] or got[absent].any():
+        raise AssertionError(f"vote_mask half absent: kernel != plain ({errs[-1]})")
+    print(f"vote_mask half the query positions absent (W 2, D 32, {nq} of {2 * nq}): equal, "
+          "the absent ones 0", flush=True)
+    return max(errs)
+
+
+def read_votes_edges(rng):
+    """read_votes at every accumulator bucket and its edges (D 1-32) on
+    rows of 0, 1, 31, 32, 33, 151 and 1001 windows in a random order from
+    an unaligned start, few rows (one per warp task) and 2^18 short ones
+    (several per task), and at D = 32's largest sums (masks all ones, and
+    one bit, over rows of 1001): largest difference from the plain
+    version."""
+    from khoice_tpu_torch.kernels import vote as kvote
+
+    dev = torch.device("cuda")
+    errs = []
+    lens = np.array([0, 1, 31, 32, 33, 151, 1001], np.int64)
+    for D in (1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32):
+        for lengths in (rng.permutation(np.resize(lens, 70)), rng.choice(lens[:5], 1 << 18)):
+            n = 13 + int(lengths.sum())
+            qmask = torch.from_numpy(rng.integers(0, 2**D, n, dtype=np.int64)).to(dev)
+            qmask[torch.from_numpy(rng.random(n) < 0.3).to(dev)] = 0
+            qmask |= torch.from_numpy(rng.integers(0, 2, n) << 40).to(dev)  # bits above D
+            valid = torch.from_numpy(rng.random(n) >= 0.05).to(dev)
+            rows = torch.from_numpy(13 + np.concatenate([[0], np.cumsum(lengths)])).to(dev)
+            args = (qmask, valid, rows, D, math.lcm(*range(1, D + 1)))
+            errs.append(max_err(kvote.read_votes(*args), kvote.read_votes_reference(*args)))
+            if errs[-1]:
+                raise AssertionError(f"read_votes D={D} {len(lengths)} rows: kernel != plain "
+                                     f"({errs[-1]})")
+    lcm = math.lcm(*range(1, 33))
+    for value in (0xFFFFFFFF, 1 << 9):
+        args = (torch.full((64 * 1001,), value, dtype=torch.int64, device=dev),
+                torch.ones(64 * 1001, dtype=torch.bool, device=dev),
+                torch.arange(65, device=dev) * 1001, 32, lcm)
+        got, want = kvote.read_votes(*args), kvote.read_votes_reference(*args)
+        errs.append(max_err(got, want))
+        if errs[-1]:
+            raise AssertionError(f"read_votes D=32 masks {value:#x}: kernel != plain")
+    print(f"read_votes at D 1-32 on rows of 0-1001 windows (70 and 2^18 rows) and at D = 32's "
+          f"largest sums (up to {int(want[0].max()):.3e}): equal", flush=True)
+    return max(errs)
+
+
+def vote_kernels_vs_plain(rng):
+    """exp6's vote kernels at phase 3's shapes (vote_shapes), each
+    against its plain version, timed, then their edge cases."""
+    from khoice_tpu_torch.kernels import _build
+    from khoice_tpu_torch.kernels import vote as kvote
+
+    results, errs, ratios = {}, {"vote_mask": [], "read_votes": []}, []
+    profiled = {"vote_mask": ("vote_mask_tiles", "vote_mask_fill"), "read_votes": "read_votes_rows"}
+    for label, name, args, record in vote_shapes(rng):
+        plain = getattr(kvote, f"{name}_reference")
+        r = compare(label, lambda: getattr(kvote, name)(*args), lambda: plain(*args),
+                    args[:-2] if name == "vote_mask" else args[:3], profiled=profiled[name])
+        errs[name].append(r["max_abs_err"])
+        ratios.append(f"{label}: {r['ms'] / r['bound_ms']:.2f}x")
+        if record:
+            results[name] = r
+        del args
+    errs["vote_mask"].append(vote_mask_edges(rng, _build.load().vote_mask_tile_elems()))
+    errs["read_votes"].append(read_votes_edges(rng))
+    for name in results:
+        results[name]["max_abs_err"] = max(errs[name])
+    print("vote kernels' time over their bound: " + ", ".join(ratios), flush=True)
     return results
 
 

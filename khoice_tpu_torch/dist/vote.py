@@ -140,14 +140,16 @@ def merge_vote_bytes(n_recv: int, n_query: int, n_reads: int, W: int, D: int,
                                            16 (W + 1) n_recv + 18 n_recv + n_query
       the sort, its input and output included, beside the flags
                                            _sort_bytes(n_recv, W, True) + n_query
-      the masks and the sums: the sorted words and payload, the tile
-      statuses, the flags, the masks, the row starts, the per-read
-      outputs and their concatenation
-                   8 (W + 1) n_recv + n_recv / 256 + 9 n_query + 8 (R + 1) + 16 (D + 2) R"""
+      the masks and the sums: the sorted words and payload, vote_mask's
+      scratch (kvote.mask_scratch_bytes: its statuses and the buckets'
+      lists, ~8 n_query), the flags, the masks, the row starts, the
+      per-read outputs and their concatenation
+                   8 (W + 1) n_recv + mask_scratch_bytes(n_recv, n_query) + 9 n_query
+                   + 8 (R + 1) + 16 (D + 2) R"""
     after = max(16 * (W + 1) * n_recv + 18 * n_recv + n_query,
                 _sort_bytes(n_recv, W, True) + n_query,
-                8 * (W + 1) * n_recv + n_recv // 256 + 9 * n_query + 8 * (n_reads + 1)
-                + 16 * (D + 2) * n_reads)
+                8 * (W + 1) * n_recv + kvote.mask_scratch_bytes(n_recv, n_query) + 9 * n_query
+                + 8 * (n_reads + 1) + 16 * (D + 2) * n_reads)
     return max(8 * (W + 1) * n_recv, after - sent_bytes) + _ALLOCATOR_SLACK
 
 

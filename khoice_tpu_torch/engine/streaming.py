@@ -41,6 +41,7 @@ import torch
 
 from ..kernels.extract import occ_words_static
 from ..kernels.sort import sort_words
+from ..kernels.vote import mask_scratch_bytes
 from ..utils.logging import get_logger
 from .bits import SENTINEL, key_words
 from .ksweep import (
@@ -221,13 +222,17 @@ def vote_bytes(n_text: int, n_query: int, n_words: int) -> int:
       the sort, its input and output included, beside the
       queries' validity                                     _sort_bytes(n, W, True) + n_query
       the masks: the sorted words and payload, the masks, the
-      tile statuses (<= n / 256) and the validity            8 (W + 1) n + n / 256 + 9 n_query
+      kernel's scratch (kernels/vote.py::mask_scratch_bytes:
+      its statuses and the buckets' lists, ~8 n_query) and
+      the validity                        8 (W + 1) n + mask_scratch_bytes(n, n_query) + 9 n_query
       the votes: the masks, the validity, the row starts and
       the per-read outputs (R <= n_query rows, D <= 32)      9 n_query + 8 (R + 1) + 8 (D + 2) R
-    The sort's line bounds the first three (16 (W + 1) + 4 (W + 2) + 1 >
+    The sort's line bounds the first (16 (W + 1) + 4 (W + 2) + 1 >
     8 (W + 1) + 8 W + 2); the last is at most 8 + 289 n_query."""
     n = n_text + n_query
-    return max(_sort_bytes(n, n_words, True) + n_query, 8 + 289 * n_query) + _ALLOCATOR_SLACK
+    masks = 8 * (n_words + 1) * n + mask_scratch_bytes(n, n_query) + 9 * n_query
+    return (max(_sort_bytes(n, n_words, True) + n_query, masks, 8 + 289 * n_query)
+            + _ALLOCATOR_SLACK)
 
 
 def resident_bytes(device) -> int:

@@ -68,9 +68,11 @@ _SIGNATURES = {
         ctypes.c_void_p,
     ]),
     "vote_mask_tile_elems": (ctypes.c_int, []),
+    "vote_mask_status_words": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_longlong]),
+    "vote_mask_staged_words": (ctypes.c_longlong, [ctypes.c_longlong]),
     "vote_mask_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]),
     "read_votes_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,

@@ -5,8 +5,8 @@ They replace XLA code of the JAX package (no Pallas kernel is on exp6's
 path): `vote_mask` the run masks of the merge-join and their return to
 read order (khoice_tpu/classify/annotate.py:250-266), `read_votes` the
 per-read sums (`_votes_from_masks`, annotate.py:497-510).  For a CUDA
-tensor each launches its kernel on the current stream, or raises; for a
-CPU tensor it runs its plain version.  Launches are counted per kernel in
+tensor each launches its kernels on the current stream (vote_mask two,
+read_votes one), or raises; for a CPU tensor it runs its plain version.  Launches are counted per kernel in
 `launches`.
 
 Layout: the merge-join's sorted keys are int64 [W, n] of 32-bit words,
@@ -23,6 +23,11 @@ from ..engine.bits import words_is_sentinel, words_starts
 from . import _build
 
 MAX_DATASETS = 32  # a mask bit per dataset, in the kernels' 32-bit masks
+# vote.cu's vote_mask: elements a tile, read positions a bucket, int64
+# words of bucket counts (a 128-B line each)
+_MASK_TILE = 4096
+_MASK_BUCKET = 4096
+_MASK_COUNT_WORDS = 16
 
 # kernel launches since the last reset (CPU calls of the plain versions do
 # not count)
@@ -37,6 +42,16 @@ def runs_mask(run: torch.Tensor, n_runs: int, gid: torch.Tensor, D: int) -> torc
     present[run * D + gid] = True
     bits = torch.tensor([1 << d for d in range(D)], device=run.device)
     return (present.view(n_runs, D).to(torch.int64) * bits).sum(1)
+
+
+def mask_scratch_bytes(n: int, n_query: int) -> int:
+    """Device bytes of vote_mask's scratch on the card over n elements
+    and n_query read positions: the zeroed status words (a tile status
+    per 4096 elements, the tile counter, each bucket's count) and the
+    buckets' lists (8 B a read position, whole buckets of 4096);
+    vote.cu's vote_mask_status_words and vote_mask_staged_words."""
+    buckets = -(-n_query // _MASK_BUCKET)
+    return 8 * (-(-n // _MASK_TILE) + 1 + buckets * _MASK_COUNT_WORDS + buckets * _MASK_BUCKET)
 
 
 def vote_mask_reference(words: torch.Tensor, payload: torch.Tensor, D: int,
@@ -142,17 +157,20 @@ def vote_mask(words: torch.Tensor, payload: torch.Tensor, D: int, n_query: int) 
         return vote_mask_reference(words, payload, D, n_query)
     _device_check(words, "vote_mask")
     W, n = words.shape
-    out = torch.zeros(n_query, dtype=torch.int64, device=words.device)
+    dev = words.device
     if n_query == 0 or n == 0:
-        return out
+        return torch.zeros(n_query, dtype=torch.int64, device=dev)
     lib = _build.load()
-    with torch.cuda.device(words.device):
-        # a status word per tile, then the tile counter
-        tile = lib.vote_mask_tile_elems()
-        status = torch.zeros((n + tile - 1) // tile + 1, dtype=torch.int64, device=words.device)
+    with torch.cuda.device(dev):
+        # the tile statuses, tile counter and bucket counts (zeroed), the
+        # buckets' lists; the kernels write every position of out
+        status = torch.zeros(lib.vote_mask_status_words(n, n_query), dtype=torch.int64,
+                             device=dev)
+        staged = torch.empty(lib.vote_mask_staged_words(n_query), dtype=torch.int64, device=dev)
+        out = torch.empty(n_query, dtype=torch.int64, device=dev)
         err = lib.vote_mask_launch(words.data_ptr(), payload.data_ptr(), n, W, D, n_query,
-                                   status.data_ptr(), out.data_ptr(),
-                                   torch.cuda.current_stream(words.device).cuda_stream)
+                                   status.data_ptr(), staged.data_ptr(), out.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vote_mask launch failed: CUDA error {err}")
     launches["vote_mask"] += 1

@@ -335,8 +335,9 @@ def test_vote_bytes_bound_the_steps_peak(monkeypatch, k, n_reads):
     (its own allocations are _sort_bytes', checked above), the masks and
     the per-read outputs stay within vote_bytes, whether the reads are
     few beside the texts or many.  The kernels run uncounted and hand
-    over their outputs (on the card they allocate nothing else but the
-    masks' tile statuses, which the estimate counts)."""
+    over their outputs (on the card they allocate nothing else but
+    vote_mask's statuses and bucket lists, kvote.mask_scratch_bytes,
+    which the estimate counts)."""
     from khoice_tpu_torch.classify import annotate as ann
     from khoice_tpu_torch.kernels import vote as kvote
 

@@ -3,8 +3,9 @@ plain versions, classify/annotate.py's merge-join voting,
 pipelines/exp6.py) vs the JAX package's, on the CPU.  Both get the same
 inputs, made from a seed; every compared value is an integer or the
 bytes of a file, so the tolerance is exact equality throughout.  Parity
-is held at D <= 12, where the JAX package's uint32 votes do not wrap; at
-D = 17 the port's int64 votes are held to a Python-int oracle."""
+is held at D <= 12, where the JAX package's uint32 votes do not wrap, and
+modulo 2^32 for the per-read sums at D up to 32; at D = 17 the port's
+int64 votes are held to a Python-int oracle."""
 
 import os
 
@@ -81,6 +82,40 @@ def test_read_votes_plain_equals_jax(nprng):
                                torch.arange(r + 1) * (l + 1), D, lcm)
         for g, w in zip(got, want):
             assert np.array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+
+
+ROW_SETS = {"empty": (0,), "short": (1, 31, 32, 33), "long": (151, 1001)}
+
+
+@pytest.mark.parametrize("rows", sorted(ROW_SETS))
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32])
+def test_read_votes_plain_equals_jax_by_bucket(D, rows):
+    """The plain read_votes against _votes_from_masks at every bucket of
+    the kernel's accumulators (D <= 4, 8, 16, 32) and its edges, on rows
+    of 0 to 1001 windows, the port's starting at an unaligned offset of a
+    longer array.  The JAX package's votes are uint32: they equal the
+    port's int64 sums modulo 2^32, and it takes an lcm below 2^32, so at
+    D >= 23 both get lcm(1..22) instead of lcm(1..D)."""
+    nprng = np.random.default_rng(D)
+    lcm = jann.vote_lcm(D) if jann.vote_lcm(D) < 2**32 else jann.vote_lcm(22)
+    for L in ROW_SETS[rows]:
+        r, off = 7, 13
+        n = r * L
+        qmask = nprng.integers(0, 1 << D, n).astype(np.uint32)
+        qmask[nprng.random(n) < 0.3] = 0
+        valid = nprng.random(n) < 0.9
+        want = jann._votes_from_masks(jnp.asarray(qmask), jnp.asarray(valid), r, L - 1, D, lcm)
+        pad = np.full(off, 0xFFFF, np.int64)  # masks outside the rows, not read
+        ones = np.ones(off, bool)
+        got = kvote.read_votes(torch.from_numpy(np.concatenate([pad, qmask, pad])),
+                               torch.from_numpy(np.concatenate([ones, valid, ones])),
+                               off + torch.arange(r + 1) * L, D, lcm)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy() % 2**32, np.asarray(w).astype(np.int64) % 2**32)
+        if L:
+            assert want[2].any()
+        if L >= 31:
+            assert np.asarray(want[0]).any()
 
 
 @pytest.mark.parametrize("D", [3, 12])

@@ -2,9 +2,15 @@
 read_votes) vs their plain PyTorch versions on the card, exact equality:
 on synthetic merge-join arrays (runs of texts then queries, at W = 1-4
 and D = 1, 4 and 32: runs of queries only, runs over more than two
-tiles, queries at tile edges, no text, no query, the SENTINEL run), on a
-real merge-join (extraction and radix sort on the card), and on read
-rows of ONT and Illumina lengths with empty rows.
+tiles, queries at tile edges, no text, no query, the SENTINEL run; the
+cases the kernel's design turns on, each at several offsets and at odd
+n: spans of texts only, a run open at a span's start whose queries lie
+in later spans, a poly-A run with thousands of queries, queries as the
+first and last element of a span, half the query positions absent), on
+a real merge-join (extraction and radix sort on the card), and on read
+rows of ONT and Illumina lengths with empty rows, at every bucket of
+read_votes' accumulators (D 1-32) on rows of 0 to 1001 windows at
+unaligned starts, and at D = 32's largest sums.
 
 Needs a CUDA device and skips without one.  The file imports no jax, so
 it runs where the JAX package is not installed:
@@ -23,6 +29,7 @@ from khoice_tpu_torch.kernels import _build
 from khoice_tpu_torch.kernels import vote as kvote
 
 ONES = 0xFFFFFFFF
+N_ROWS = (60, 300_000)  # one row per warp task, and many
 
 
 @pytest.fixture
@@ -139,6 +146,76 @@ def test_vote_mask_on_a_real_merge_join(cuda, k):
     assert (want[qvalid] != 0).float().mean() > 0.5
 
 
+def shifted(words, pay, s):
+    """The join with s text elements of dataset 0 under a key below every
+    other put first: the same runs s elements further on."""
+    low = torch.zeros(words.shape[0], s, dtype=torch.int64)
+    return torch.cat([low, torch.as_tensor(words)], 1), torch.cat(
+        [torch.zeros(s, dtype=torch.int64), torch.as_tensor(pay)])
+
+
+def span_cases(tile):
+    """Runs (texts, queries) at the edges of the kernel's warp spans (a
+    tile is 8 spans of 64-element windows) and tiles."""
+    span = tile // 8
+    return {
+        # spans of texts only, some with key starts, between query runs
+        "texts only": [(3, 0)] * (3 * span // 3) + [(2, 2)] * 20 + [(span + 5, 0)] + [(1, 1)] * 30,
+        # a run open at a span's (and a tile's) start whose queries lie in
+        # several later spans
+        "open run, queries in later spans": [(1, 1)] * 40 + [(span + 40, 3 * span + 7)]
+        + [(2, 1)] * 100 + [(tile - 3, 2 * tile)] + [(1, 2)] * 50,
+        # a poly-A run: its queries fill spans and tiles, far more than a
+        # warp or a block holds at once
+        "poly-A": [(3, 2)] * 7 + [(40, 3 * tile + 5)] + [(1, 1)] * 20,
+        # a query as the last element of one span and the first of the next
+        "queries at span ends": [(span - 2, 1), (0, 1), (1, 1)] * 3 + [(span - 1, 1), (1, 0)] * 3
+        + [(3, 3)] * 200,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 2, 4])
+@pytest.mark.parametrize("case", ["texts only", "open run, queries in later spans", "poly-A",
+                                  "queries at span ends"])
+def test_vote_mask_span_edges(cuda, W, case):
+    """Each case at shifts of 0, 1, 63, 64, 65, a span - 1 and a tile + 1
+    elements (odd shifts: odd n, so rows of words 1 and 3 are not 16-B
+    aligned and take 8-B loads)."""
+    tile = _build.load().vote_mask_tile_elems()
+    rng = np.random.default_rng(W)
+    words, pay, nq = merged(rng, W, 4, span_cases(tile)[case])
+    for s in (0, 1, 63, 64, 65, tile // 8 - 1, tile + 1):
+        want = check_mask(cuda, *shifted(words, pay, s), 4, nq)
+        assert want.any()
+        if case != "texts only":
+            assert (want != 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 3])
+def test_vote_mask_absent_queries_stay_zero(cuda, W):
+    """As a rank of the sharded votes calls it (dist/vote.py): n_query
+    twice the queries present, half the positions absent from the join;
+    they must stay 0, and so must a payload view that is not 16-B
+    aligned."""
+    rng = np.random.default_rng(40 + W)
+    D = 32
+    runs = [(int(rng.integers(0, 9)), int(rng.integers(0, 9))) for _ in range(20000)]
+    words, pay, nq = merged(rng, W, D, runs)
+    keep = np.sort(rng.permutation(2 * nq)[:nq])  # the query positions present
+    pay = np.where(pay >= D, D + keep[np.clip(pay - D, 0, nq - 1)], pay)
+    want = check_mask(cuda, words, pay, D, 2 * nq)
+    absent = np.setdiff1d(np.arange(2 * nq), keep)
+    assert not want[torch.as_tensor(absent, device=cuda)].any()
+    assert want[torch.as_tensor(keep, device=cuda)].any()
+    padded = torch.as_tensor(np.concatenate([[0], pay]), device=cuda)
+    view = padded[1:]
+    assert view.data_ptr() % 16
+    w = torch.as_tensor(words, device=cuda)
+    assert torch.equal(kvote.vote_mask(w, view, D, 2 * nq), want)
+
+
 def rows(rng, lengths, D, p_zero=0.3, p_invalid=0.05):
     n = int(sum(lengths))
     qmask = rng.integers(0, 2**D, n, dtype=np.int64)
@@ -205,3 +282,58 @@ def test_read_votes_bulk_multi_on_the_card_equals_the_cpu(cuda):
         for a, b in zip(out["cpu"], out[str(cuda)]):
             for x, y in zip(a, b):
                 assert np.array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32])
+def test_read_votes_every_bucket(cuda, D):
+    """Every accumulator bucket (D <= 4, 8, 16, 32) and its edges, on rows
+    of 0, 1, 31, 32, 33, 151 and 1001 windows in every order, starting at
+    unaligned positions (the first at 13), mask bits above D set, in
+    blocks of rows few enough for one row per warp task and many enough
+    for several."""
+    rng = np.random.default_rng(100 + D)
+    lcm = math.lcm(*range(1, D + 1))
+    base = np.array([0, 1, 31, 32, 33, 151, 1001], np.int64)
+    for n_rows in N_ROWS:
+        lengths = rng.permutation(np.resize(base, n_rows)) if n_rows < 1000 else \
+            rng.choice(base[:5], n_rows)
+        qm, valid, rs = rows(rng, lengths, D)
+        qm |= rng.integers(0, 2, qm.shape[0]) << 40  # bits above D, not read
+        qm = np.concatenate([np.zeros(13, np.int64), qm])
+        valid = np.concatenate([np.ones(13, bool), valid])
+        qm, valid, rs = (torch.from_numpy(x).to(cuda) for x in (qm, valid, rs + 13))
+        got = kvote.read_votes(qm, valid, rs, D, lcm)
+        want = kvote.read_votes_reference(qm, valid, rs, D, lcm)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert want[0].any() and want[1].any()
+
+
+@pytest.mark.cuda
+def test_read_votes_largest_sums(cuda):
+    """D = 32 over rows of 1001 windows: every mask all ones (lcm / 32 a
+    window and dataset, ~4.5e15 a row) and every mask one bit (the whole
+    lcm a window, ~1.4e17 a row for one dataset), exact in int64."""
+    lcm = math.lcm(*range(1, 33))
+    rs = torch.arange(65, device=cuda) * 1001
+    valid = torch.ones(64 * 1001, dtype=torch.bool, device=cuda)
+    for value, top in ((ONES, 1001 * (lcm // 32)), (1 << 9, 1001 * lcm)):
+        qm = torch.full((64 * 1001,), value, dtype=torch.int64, device=cuda)
+        got = kvote.read_votes(qm, valid, rs, 32, lcm)
+        want = kvote.read_votes_reference(qm, valid, rs, 32, lcm)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int(got[0].max()) == top
+    assert 1.4e17 < top < 2**63
+
+
+@pytest.mark.cuda
+def test_vote_mask_scratch_bytes_match_the_kernel(cuda):
+    """The budget's mirror of vote_mask's scratch (kvote.mask_scratch_bytes,
+    engine/streaming.py::vote_bytes, dist/vote.py::merge_vote_bytes)
+    equals what the wrapper allocates from the library's sizes."""
+    lib = _build.load()
+    for n, nq in ((1, 1), (4095, 4096), (4097, 4097), (75_497_371, 8_388_503), (2**32 - 1, 2**31)):
+        words = lib.vote_mask_status_words(n, nq) + lib.vote_mask_staged_words(nq)
+        assert kvote.mask_scratch_bytes(n, nq) == 8 * words

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Variants of a CUDA source of the port timed in turns against it.
 
-    python tools/sort_variants.py [--kernel sort|scan|occ|extract|sweep]
+    python tools/sort_variants.py [--kernel sort|scan|occ|extract|sweep|vote]
                                   [--reps 10] [--parent DIR]
 
 --kernel sort (the default): `khoice_tpu_torch/csrc/radix_sort.cu`;
 --kernel scan: `khoice_tpu_torch/csrc/ksweep_scan.cu`; --kernel occ:
 `khoice_tpu_torch/csrc/occ_scan.cu` (kernels B and C); --kernel extract:
 `khoice_tpu_torch/csrc/extract_canonical.cu` (kernel A); --kernel sweep:
-`khoice_tpu_torch/csrc/extract_sweep.cu`.  Each variant is
-the source with a few lines replaced (SORT_VARIANTS, SCAN_VARIANTS,
-OCC_VARIANTS, EXTRACT_VARIANTS, SWEEP_VARIANTS), compiled alone with
+`khoice_tpu_torch/csrc/extract_sweep.cu`; --kernel vote:
+`khoice_tpu_torch/csrc/vote.cu` (exp6's vote_mask and read_votes).  Each
+variant is the source with a few lines replaced (SORT_VARIANTS,
+SCAN_VARIANTS, OCC_VARIANTS, EXTRACT_VARIANTS, SWEEP_VARIANTS,
+VOTE_VARIANTS), compiled alone with
 nvcc into a temporary directory and
 loaded in place of the port's library for the kernel's wrapper
 (`kernels/sort.py`, `kernels/ksweep_scan.py`, `kernels/occ_scan.py`,
-`kernels/extract.py`, `kernels/extract_sweep.py`),
+`kernels/extract.py`, `kernels/extract_sweep.py`, `kernels/vote.py`),
 all in one process on one card.  The shapes are those of
 `chip_smoke.py` phase 3: for the sort the bench class, the unpacked
 class, the per-k packed words at k = 31 and 49 and a 2^24-key table
@@ -27,7 +29,10 @@ and C on 300 x 2^16 at k = 31; for extract, A on 2^24 codes at k = 7,
 15, 16, 31, 32, 49 and 63 (keys, and gid-packed to k = 49) and on 2.0M
 codes (a table op's call) at k = 7, 15, 21, 31 and 49; for sweep, the
 doubled bench class, the doubled unpacked class, a streamed chunk
-(direct, at an unaligned offset) and the doubled 96 x 2^20 text.
+(direct, at an unaligned offset) and the doubled 96 x 2^20 text; for
+vote, `chip_smoke.vote_shapes` (vote_mask on a 4 x 2^24 + 2^23
+merge-join at k = 7, 21, 33 and 49; read_votes on ONT- and
+Illumina-like rows at D = 4 and 32 and on that join's masks at D = 4).
 `--parent DIR` adds the variant "parent": with --kernel occ
 DIR/khoice_tpu_torch/csrc/occ_scan.cu of the three-pass
 kernel's tree (commit 54bd19a, unpacked with `git archive`; a source
@@ -36,7 +41,11 @@ with another C signature is refused), called through that signature
 blocks an SM (PARENT_VARIANTS); with --kernel extract
 DIR/khoice_tpu_torch/csrc/extract_canonical.cu of any tree whose
 extract_canonical_launch has the committed signature (kernel A before
-its redesign: commit bbbc043), called through the same wrapper.  Each
+its redesign: commit bbbc043), called through the same wrapper; with
+--kernel vote DIR/khoice_tpu_torch/csrc/vote.cu of commit 6d9f629 (both
+kernels before their redesign), its vote_mask called through its own
+one-launch signature (PARENT_VOTE_SIGNATURE, a zeroed `out`) and its
+read_votes through the committed wrapper.  Each
 shape times every variant twice, in the order committed, variants,
 variants reversed, committed (CUDA events over `--reps` calls); a
 variant that keeps the function must give the committed kernel's result
@@ -44,9 +53,11 @@ bit for bit.  The ablations (x_*) drop a part of the kernel to show what
 it costs: their results are wrong, and a sort ablation runs only where
 that cannot write out of bounds (no all-ones elements).  Also prints,
 for the sort, the committed kernel's ms per sort by kernel
-(torch.profiler), for extract and sweep each variant's device time per
-launch (torch.profiler, after its turns), and the card's name and power
-limit.
+(torch.profiler), for extract, sweep and vote each variant's device time
+per call (torch.profiler, after its turns; vote_mask's two kernels
+summed), for vote each variant's
+registers and blocks per SM by instantiation (from ptxas's report), and
+the card's name and power limit.
 """
 
 import argparse
@@ -210,6 +221,65 @@ EX_VARIANTS = {
 }
 EXTRACT_VARIANTS = EX_VARIANTS
 SWEEP_VARIANTS = EX_VARIANTS
+# the vote kernels' lines that the variants replace
+VOTE_DEPTH = "constexpr int DEPTH = 2; "
+VOTE_MIN_BLOCKS = "constexpr int MIN_BLOCKS = 4; "
+VOTE_MIN_BLOCKS_WIDE = "constexpr int MIN_BLOCKS_WIDE = 3; "
+VOTE_CHUNKS = "constexpr int CHUNKS = 4; "
+VOTE_T = "  const int T = (int)((R + rounds * warps - 1) / (rounds * warps));"
+VOTE_TEXT_ONLY = "    if (!__any_sync(FULL, q0 || q1)) {"
+VOTE_LOAD_WORDS = "__ldcs(reinterpret_cast<const longlong2*>(p))"
+VOTE_LOAD_PAY = "__ldcs(reinterpret_cast<const longlong2*>(pay + i))"
+VOTE_STAGE = """  const unsigned slot = atomicAdd(count + b * COUNT_STRIDE, 1u);
+  staged[(b << BUCKET_BITS) + slot] = ((u64)(pos & (BUCKET - 1)) << 32) | v;"""
+VOTE_BUCKET = "constexpr int BUCKET_BITS = 12;"
+VOTE_COUNT_STRIDE = "constexpr int COUNT_STRIDE = 32; "
+VOTE_ADD = """    asm("{\\n\\t.reg .pred p;\\n\\tsetp.ne.b32 p, %2, 0;\\n\\t@p add.s64 %0, %0, %1;\\n\\t}"
+        : "+l"(acc[d])
+        : "l"(w), "r"(m & (1u << d)));"""
+VOTE_VARIANTS = {
+    # windows in flight per warp: one fewer, one more
+    "depth_1": ([(VOTE_DEPTH, "constexpr int DEPTH = 1; ")], True, ("vote_mask",)),
+    "depth_3": ([(VOTE_DEPTH, "constexpr int DEPTH = 3; ")], True, ("vote_mask",)),
+    # blocks per SM the registers allow: 3 at W <= 2 (72 registers), 2 or
+    # 4 at W 3-4 (96 or 64)
+    "blocks_3": ([(VOTE_MIN_BLOCKS, "constexpr int MIN_BLOCKS = 3; ")], True, ("vote_mask",)),
+    "blocks_wide_2": ([(VOTE_MIN_BLOCKS_WIDE, "constexpr int MIN_BLOCKS_WIDE = 2; ")], True,
+                      ("vote_mask",)),
+    "blocks_wide_4": ([(VOTE_MIN_BLOCKS_WIDE, "constexpr int MIN_BLOCKS_WIDE = 4; ")], True,
+                      ("vote_mask",)),
+    # every window through the per-lane segmented OR: what the path for
+    # windows without a query buys
+    "no_text_only_path": ([(VOTE_TEXT_ONLY, "    if (false) {")], True, ("vote_mask",)),
+    # the 16-B loads through the read-only path without the evict-first
+    # hint
+    "loads_ldg": ([(VOTE_LOAD_WORDS, VOTE_LOAD_WORDS.replace("__ldcs", "__ldg")),
+                   (VOTE_LOAD_PAY, VOTE_LOAD_PAY.replace("__ldcs", "__ldg"))], True,
+                  ("vote_mask",)),
+    # buckets of 2048 or 8192 read positions (8 or 32 KB of shared
+    # memory in vote_mask_fill)
+    "bucket_2048": ([(VOTE_BUCKET, "constexpr int BUCKET_BITS = 11;")], True, ("vote_mask",)),
+    # the slot counts packed, 32 to a 128-B line
+    "counts_packed": ([(VOTE_COUNT_STRIDE, "constexpr int COUNT_STRIDE = 1; ")], True,
+                      ("vote_mask",)),
+    "bucket_8192": ([(VOTE_BUCKET, "constexpr int BUCKET_BITS = 13;")], True, ("vote_mask",)),
+    # ablations: no query appended (vote_mask_fill writes zeros), every
+    # window through the no-query path (no per-lane scan, no appends)
+    "x_no_stage": ([(VOTE_STAGE, "  if (v == 0x9e3779b9u) staged[b] = pos;")], False,
+                   ("vote_mask",)),
+    "x_all_no_query_path": ([(VOTE_TEXT_ONLY, "    if (true) {")], False, ("vote_mask",)),
+    # read_votes' per-dataset adds as C (the compiler's selects of w or 0)
+    "adds_select": ([(VOTE_ADD, "    if ((m >> d) & 1u) acc[d] += w;")], True, ("read_votes",)),
+    "chunks_2": ([(VOTE_CHUNKS, "constexpr int CHUNKS = 2; ")], True, ("read_votes",)),
+    "chunks_8": ([(VOTE_CHUNKS, "constexpr int CHUNKS = 8; ")], True, ("read_votes",)),
+    # one row per warp task, half the committed task size, or tasks of
+    # 31 rows however few (a half-warp per row was not written: with a
+    # lane per window a warp already streams short rows back to back)
+    "rows_1": ([(VOTE_T, "  const int T = 1;")], True, ("read_votes",)),
+    "rows_half": ([(VOTE_T, VOTE_T.replace("rounds * warps", "2 * rounds * warps"))],
+                  True, ("read_votes",)),
+    "rows_31": ([(VOTE_T, "  const int T = MAX_T;")], True, ("read_votes",)),
+}
 # source, variants, C entry points, the kernel's name in a profiler trace
 KERNELS = {
     "sort": ("radix_sort.cu", SORT_VARIANTS,
@@ -222,15 +292,26 @@ KERNELS = {
     "extract": ("extract_canonical.cu", EXTRACT_VARIANTS, ("extract_canonical_launch",),
                 "extract_kernel"),
     "sweep": ("extract_sweep.cu", SWEEP_VARIANTS, ("extract_sweep_launch",), "sweep_tiles"),
+    "vote": ("vote.cu", VOTE_VARIANTS,
+             ("vote_mask_tile_elems", "vote_mask_status_words", "vote_mask_staged_words",
+              "vote_mask_launch", "read_votes_launch"),
+             {"vote_mask": ("vote_mask_tiles", "vote_mask_fill"), "read_votes": "read_votes_rows"}),
 }
 # the declaration a parent's source must hold: occ's three-pass kernel
 # (its own signature), or kernel A's committed one
 PARENT_DECL = {
     "extract": 'extern "C" int extract_canonical_launch(const void* codes, long long n, int k,',
+    "vote": 'extern "C" int vote_mask_launch(const void* words, const void* payload, long long n, int W,',
 }
 # the parent's occ_scan_launch: (words, gid, n, W, packed, cs, n_bins,
 # tile_f, tile_c, carry, hist, stream), and the text that declares it
 PARENT_OCC_DECL = "int packed, int cs, int n_bins, void* tile_f, void* tile_c,"
+# the parent's vote_mask_launch: (words, payload, n, W, D, n_query,
+# status, out, stream), one launch into a zeroed out
+PARENT_VOTE_SIGNATURE = (ctypes.c_int, [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+])
 PARENT_OCC_SIGNATURE = (ctypes.c_int, [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -288,15 +369,49 @@ def build(tmp: str, kernel: str, parent: str | None = None) -> dict:
             raise SystemExit(f"nvcc failed on variant {name}:\n{out[-4000:]}")
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", out)})
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", out))
-        print(f"{name}: ptxas {regs[0]}-{regs[-1]} registers, {spills} bytes spilled",
-              flush=True)
+        print(f"{name}: ptxas {regs[0]}-{regs[-1]} registers, {spills} bytes spilled"
+              + (f"; {per_instantiation(out)}" if kernel == "vote" else ""), flush=True)
         lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
         for fn in symbols:
-            getattr(lib, fn).restype, getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+            if hasattr(lib, fn):  # a parent may lack the committed tree's newer entry points
+                getattr(lib, fn).restype, getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
         if name.startswith("parent") and kernel == "occ":
             lib.occ_scan_launch.restype, lib.occ_scan_launch.argtypes = PARENT_OCC_SIGNATURE
+        if name == "parent" and kernel == "vote":
+            lib.vote_mask_launch.restype, lib.vote_mask_launch.argtypes = PARENT_VOTE_SIGNATURE
         libs[name] = lib
     return libs
+
+
+def per_instantiation(ptxas: str) -> str:
+    """Each vote kernel instantiation's registers and the blocks of 256
+    threads an SM can hold with them (registers allocated 8 a thread and
+    256 a warp, 65536 an SM, at most 64 warps)."""
+    out, name, stack = [], None, 0
+    for line in ptxas.splitlines():
+        m = re.search(r"entry function '.*?(vote_mask_tiles|read_votes_rows)(?:ILi(\d+)EE)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            stack = 0
+        elif name and "stack frame" in line:
+            stack = int(re.search(r"(\d+) bytes stack frame", line).group(1))
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            per_warp = -(-(-(-regs // 8) * 8 * 32) // 256) * 256
+            out.append(f"{name} {regs} regs {min(8, 65536 // (per_warp * 8))} blocks/SM"
+                       + (f" {stack} B stack" if stack else ""))
+            name = None
+    return ", ".join(out)
+
+
+def vote_shapes(dev) -> dict:
+    """{label: (the wrapper, its arguments)} at phase 3's vote shapes
+    (chip_smoke.vote_shapes, from its own generator)."""
+    import chip_smoke
+    from khoice_tpu_torch.kernels import vote as kvote
+
+    return {label: (getattr(kvote, name), args) for label, name, args, _ in
+            chip_smoke.vote_shapes(np.random.default_rng(14))}
 
 
 def sort_shapes(dev) -> dict:
@@ -483,12 +598,29 @@ def parent_occ(lib, words, *rest):
     return hist
 
 
+def parent_vote_mask(lib, words, payload, D, n_query):
+    """The parent's vote_mask through its own C signature: a status word
+    per tile and the counter, zeroed, and a zeroed out."""
+    W, n = words.shape
+    dev = words.device
+    tile = lib.vote_mask_tile_elems()
+    status = torch.zeros((n + tile - 1) // tile + 1, dtype=torch.int64, device=dev)
+    out = torch.zeros(n_query, dtype=torch.int64, device=dev)
+    err = lib.vote_mask_launch(words.data_ptr(), payload.data_ptr(), n, W, D, n_query,
+                               status.data_ptr(), out.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"parent vote_mask launch failed: CUDA error {err}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="sort")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--parent", help="a tree whose occ_scan.cu (--kernel occ) or "
-                    "extract_canonical.cu (--kernel extract) is timed as 'parent'")
+    ap.add_argument("--parent", help="a tree whose occ_scan.cu (--kernel occ), "
+                    "extract_canonical.cu (--kernel extract) or vote.cu (--kernel vote) is "
+                    "timed as 'parent'")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -509,9 +641,11 @@ def main():
         cases = occ_shapes(dev)
     elif args.kernel == "extract":
         cases = extract_shapes(dev)
+    elif args.kernel == "vote":
+        cases = vote_shapes(dev)
     else:
         cases = sweep_shapes(dev)
-    parent = args.parent if args.kernel in ("occ", "extract") else None
+    parent = args.parent if args.kernel in ("occ", "extract", "vote") else None
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(tmp, args.kernel, parent)
         if parent:
@@ -521,14 +655,17 @@ def main():
         try:
             for label, (wrapper, inputs) in cases.items():
                 run = ["committed"] + [n for n, (_, _, only) in variants.items()
-                                       if only is None or label in only]
+                                       if only is None or label.startswith(only)]
                 times = {name: [] for name in run}
                 want = None
                 for order in (run, run[::-1]):
                     for name in order:
                         _build.load = lambda name=name: libs[name]
-                        fn = (lambda *a, lib=libs[name]: parent_occ(lib, *a)) \
-                            if name.startswith("parent") and args.kernel == "occ" else wrapper
+                        fn = wrapper
+                        if name.startswith("parent") and args.kernel == "occ":
+                            fn = lambda *a, lib=libs[name]: parent_occ(lib, *a)  # noqa: E731
+                        elif name == "parent" and label.startswith("vote_mask"):
+                            fn = lambda *a, lib=libs[name]: parent_vote_mask(lib, *a)  # noqa: E731
                         got = fn(*inputs)
                         got = got if isinstance(got, tuple) else (got,)
                         torch.cuda.synchronize()
@@ -546,10 +683,14 @@ def main():
                     head = f"{label} ({len(ksort.last_plan[0])} passes)"
                 device = {}
                 if profiled:
+                    kname = profiled if isinstance(profiled, str) else \
+                        profiled[label.split()[0]]
                     for name in run:
                         _build.load = lambda name=name: libs[name]
-                        device[name] = chip_smoke.device_ms(lambda: wrapper(*inputs), profiled,
-                                                            args.reps)
+                        fn = wrapper
+                        if name == "parent" and label.startswith("vote_mask"):
+                            fn = lambda *a, lib=libs[name]: parent_vote_mask(lib, *a)  # noqa: E731
+                        device[name] = chip_smoke.device_ms(lambda: fn(*inputs), kname, args.reps)
                     _build.load = lambda: libs["committed"]
                 print(f"{head}: " + ", ".join(
                     f"{name} {np.mean(t):.3f} ms ({t[0]:.3f} / {t[1]:.3f}"
