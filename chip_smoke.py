@@ -163,6 +163,30 @@ Phases (any failure raises, so the exit code is non-zero):
         call held; both must equal the single-device votes and histograms.
      Each run's launches are counted from 0 and added to the kernels
      line's.  Phase 2 also asserts that the native FASTA scanner loaded.
+  7. the counterparts of the JAX system's root entry points and on-chip
+     tools, each run on the card as a user would run it:
+     a. `python bench_torch.py` (a subprocess): its last line carries
+        bench.py's four keys and a rate above 0, its protocol rows (card,
+        launches, stage split, the multi-card row over gloo ranks sharing
+        the card) are printed, its timed grids launched the sweep's
+        kernels, and it wrote nothing into the checkout's root;
+     b. __graft_entry_torch__.entry(): fn(*args) on cuda equal to its run
+        on the CPU (the plain versions);
+     c. __graft_entry_torch__.dryrun_multichip(1): the sharded pipeline
+        over one NCCL rank against the single-device engine and the
+        oracle;
+     d. tools/hw_check_torch.py's main, which must return 0: the sweep
+        equal to the per-k path at all 30 ks, the four classification
+        modes of the scan kernel equal to the plain scan;
+     e. tools/bench_ksweep_torch.py's run: the sweep and the per-k path
+        at the bench shape, equal at every k, and their times;
+     f. tools/demo_streaming_torch.py's demo on 6 x 8 Mbp under 1 GiB and
+        0.5 GiB (below the group's in-core estimate): two different
+        decompositions, identical histograms, each peak within its
+        budget.
+     7b-7f's launches are counted from 0 and printed on a line of their
+     own (the kernels line keeps phases 4-6's); A, B, the sort, the
+     sweep's extraction and every scan mode must have launched.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -2331,6 +2355,105 @@ def sharded_tables(group, db, db96):
     return c, e, st
 
 
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py's last line
+DEMO_MEMBERS, DEMO_LEN, DEMO_BUDGET = 6, 8_000_000, 1 << 30  # 7f's reduced demo
+DEMO_KS = [7, 13, 21, 31, 49]
+
+
+def bench_entry():
+    """7a: `python bench_torch.py` as a user runs it; its last line must
+    carry bench.py's four keys and a rate above 0, its protocol rows are
+    printed, its timed grids must have launched the sweep's kernels, and
+    it must write nothing into the checkout's root (bench.py writes
+    BENCH_PROTOCOL.json there)."""
+
+    def root_entries():
+        return {n: os.stat(os.path.join(ROOT, n)).st_mtime_ns for n in os.listdir(ROOT)
+                if n != "__pycache__"}
+
+    before = root_entries()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise AssertionError(f"7a bench_torch.py exited {res.returncode}:\n{res.stderr[-4000:]}")
+    if root_entries() != before:
+        raise AssertionError("7a: bench_torch.py wrote into the checkout's root")
+    lines = res.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  bench_torch: {line}", flush=True)
+    head = json.loads(lines[-1])
+    if set(head) != BENCH_KEYS or not head["value"] > 0:
+        raise AssertionError(f"7a bench_torch.py's last line {lines[-1]!r}")
+    rows = [json.loads(line) for line in lines[:-1] if line.startswith("{")]
+    launched = next(row["launches"] for row in rows if "launches" in row)
+    idle = [k for k in ("extract_sweep", "radix_sort", "ksweep_scan") if launched[k] < 1]
+    if idle:
+        raise AssertionError(f"7a: bench_torch.py's timed grids never launched {idle}")
+    print(f"7a bench_torch.py: {lines[-1]} ({time.perf_counter() - t0:.1f} s with the "
+          "process's start)", flush=True)
+
+
+def entry_points():
+    """7: the counterparts of the JAX system's root entry points and on-chip
+    tools, on the card: bench_torch.py (a subprocess, 7a); the graft
+    entry() on cuda against its run on the CPU (7b, the plain versions);
+    dryrun_multichip(1) over one NCCL rank (7c); tools/hw_check_torch.py
+    (7d, exit 0: 30 ks and four classification modes); bench_ksweep_torch
+    (7e); demo_streaming_torch at a reduced size under a budget below the
+    group's in-core estimate and its half (7f).  Returns the launches of
+    each kernel in 7b-7f (this process; 7a's and 7c's ranks run in their
+    own processes)."""
+    phase("7 entry points: bench_torch.py, __graft_entry_torch__, tools/*_torch.py")
+    for path in (ROOT, os.path.join(ROOT, "tools")):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    import __graft_entry_torch__ as graft
+    import bench_ksweep_torch
+    import demo_streaming_torch
+    import hw_check_torch
+
+    bench_entry()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    fn, args = graft.entry()
+    got = [t.cpu() for t in fn(*args)]
+    cfn, cargs = graft.entry(device="cpu")
+    want = cfn(*cargs)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("7b: the graft entry() on cuda differs from its run on the CPU")
+    print(f"7b entry(): histogram {got[0][:4].tolist()}, {got[1].shape[1]} distinct 31-mers, "
+          f"equal to the CPU's plain versions ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    graft.dryrun_multichip(1)
+    print(f"7c dryrun_multichip(1) over one NCCL rank: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    rc = hw_check_torch.main()
+    if rc != 0:
+        raise AssertionError(f"7d tools/hw_check_torch.py returned {rc}")
+    print(f"7d hw_check_torch: 0 mismatches ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    out = bench_ksweep_torch.run("cuda")
+    print(f"7e bench_ksweep_torch: sweep {out['sweep_ms']:.3f} ms, per-k {out['perk_ms']:.3f} ms, "
+          f"equal at every k ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    members = demo_streaming_torch.demo_members(DEMO_MEMBERS, DEMO_LEN)
+    out = demo_streaming_torch.demo(members, DEMO_KS, DEMO_BUDGET, "cuda")
+    print(f"7f demo_streaming_torch ({DEMO_MEMBERS} x {DEMO_LEN / 1e6:g} Mbp, in-core estimate "
+          f"{out['incore_estimate_bytes'] / 2**30:.2f} GiB): walls "
+          f"{[round(r['wall_s'], 3) for r in out['runs']]} s, peaks "
+          f"{[r['peak_bytes'] for r in out['runs']]} B under budgets "
+          f"{[r['budget_bytes'] for r in out['runs']]} B, identical "
+          f"({time.perf_counter() - t0:.1f} s; {smi_line()})", flush=True)
+    counts = read_counts()
+    idle = [k for k in ("A", "B", "sort", "sweep", "occ") + MODES if counts[k] < 1]
+    if idle:
+        raise AssertionError(f"7b-7f never launched {idle}")
+    return counts
+
+
 def kernel_record(name, source, replaces, launches, r, library_ms=None):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2399,6 +2522,12 @@ def main():
         print(f"phase 6's launches (6a + 6b + 6c + 6d's two ranks + 6e + 6f's two processes): "
               f"{ {k: v for k, v in sharded_launches.items() if v} }; the kernels line adds "
               f"them to phase 4/5's", flush=True)
+    t0 = time.perf_counter()
+    entry_launches = entry_points()
+    walls["entry points 7"] = time.perf_counter() - t0
+    print(f"phase 7's launches (7b-7f, this process): "
+          f"{ {k: v for k, v in entry_launches.items() if v} }; not in the kernels line",
+          flush=True)
     for kernel, err in errors.items():
         key = kernel.split()[0]  # "A keys", "A packed" -> "A"
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)

@@ -131,6 +131,20 @@ def _sweep_doubled(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
     return sort_words(*doubled_elements(codes, gids, kmax, KW, packed))
 
 
+def sweep_class_hists(codes: torch.Tensor, gids: torch.Tensor, n_members: int, kmax: int,
+                      KW: int, cks: Sequence[int], packed: bool, cs: int = 5000,
+                      cx: int = 10000) -> Dict[int, List[int]]:
+    """{k: occurrence histogram} of one class of plan_sweep's plan: ONE sort
+    of the doubled text and ONE scan serve all of its ks (the JAX package's
+    `_sweep_class_fn`)."""
+    skeys, spay = _sweep_doubled(codes, gids, kmax, KW, packed)
+    raw = scan_multi_k(skeys, spay, cks, n_members, cs, packed)
+    del skeys, spay
+    hists = ((raw[0] + raw[1]) // 2).cpu().tolist()
+    top = min(n_members, cx)
+    return {k: hists[i][:top] + [0] * (cx - top) for i, k in enumerate(cks)}
+
+
 def occurrence_histograms_sweep_packed(
     packed,
     n_members: int,
@@ -157,13 +171,7 @@ def occurrence_histograms_sweep_packed(
         )
     out: Dict[int, List[int]] = {}
     for kmax, KW, cks, pay_packed in classes:
-        skeys, spay = _sweep_doubled(codes, gids, kmax, KW, pay_packed)
-        raw = scan_multi_k(skeys, spay, cks, n_members, cs, pay_packed)
-        del skeys, spay
-        hists = ((raw[0] + raw[1]) // 2).cpu().tolist()
-        top = min(n_members, cx)
-        for i, k in enumerate(cks):
-            out[k] = hists[i][:top] + [0] * (cx - top)
+        out.update(sweep_class_hists(codes, gids, n_members, kmax, KW, cks, pay_packed, cs, cx))
     for k in remaining:
         out[k] = occurrence_histogram_packed(packed, n_members, k, cs=cs, cx=cx)
     return out

@@ -3,6 +3,7 @@
 
     python tools/profile_torch_sweep.py [--db DATABASE_ROOT] [--exp-types 1,2,3,4]
                                         [--kmers-per-dataset N] [--out DIR] [--sharded]
+                                        [--perk]
 
 1. The shared-sort sweep at the bench shape (8 members x 2^21 random
    bases, the 30-point grid, one packed KW=4 class), stage by stage with
@@ -12,16 +13,20 @@
    call the sort row of PERF.md is held against, and the radix sort's
    planned passes and its time by kernel (first pass, middle passes,
    last pass) under torch.profiler.
-2. With --db: each of --exp-types through the CLI entry point under
+2. With --perk: the per-k fused step at the same shape and k = 31 (the
+   counterpart of tools/profile_stages.py), stage by stage with CUDA
+   events: kernel A in its gid-packed form, the radix sort of its words,
+   kernel B's histogram and the copy back.
+3. With --db: each of --exp-types through the CLI entry point under
    torch.profiler (exp 2/3/4/6 share one work root, and exp0 runs there
    first, unprofiled); prints the wall time, the top device ops and the
    device-busy share: the union of the trace's kernel, memcpy and memset
    intervals over the wall (overlaps counted once).  --out also keeps
    the chrome traces there.
-3. With --db and --sharded: `run_exp1` on the database's groups (read
+4. With --db and --sharded: `run_exp1` on the database's groups (read
    once, before the runs) on one device and over a key-range group of one
    rank on NCCL (dist/), in turns (single, sharded, sharded, single),
-   each under torch.profiler as in 2; the group is made, and NCCL's
+   each under torch.profiler as in 3; the group is made, and NCCL's
    first collective run, before the first turn.
 
 Prints the card's name and power limit first and one JSON line last.
@@ -92,6 +97,43 @@ def bench_stages(reps: int) -> dict:
         label: sort_profile(sort_words, *_doubled_elements(codes, gids, *cls), reps)
         for label, cls in (("bench class", (kmax, KW, packed)),
                            ("unpacked class kmax 30", (30, 2, False)))}
+    return out
+
+
+def perk_stages(reps: int, k: int = 31) -> dict:
+    """The per-k fused step at the bench shape, stage by stage (medians
+    of `reps` after a warm-up, CUDA events): kernel A (gid-packed words),
+    the radix sort, kernel B, the histogram's copy back."""
+    from khoice_tpu_torch.engine.occurrence import pack_members
+    from khoice_tpu_torch.kernels.extract import extract_packed, occ_words_static
+    from khoice_tpu_torch.kernels.occ_scan import occ_hist_packed
+    from khoice_tpu_torch.kernels.sort import sort_words
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    members = [rng.integers(0, 4, size=1 << 21, dtype=np.uint8) for _ in range(8)]
+    codes, gids = pack_members(members, dev)
+
+    def once():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        words = extract_packed(codes, gids, k)
+        ev[1].record()
+        sp, _ = sort_words(words)
+        ev[2].record()
+        small = occ_hist_packed(sp, 8, 5000)
+        ev[3].record()
+        small.tolist()
+        ev[4].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    once()
+    runs = [once() for _ in range(reps)]
+    names = ["extract_packed_A", "sort", "occ_hist_packed_B", "d2h"]
+    out = {n: float(np.median([r[i] for r in runs])) for i, n in enumerate(names)}
+    out["total"] = sum(out[n] for n in names)
+    out.update(k=k, positions=int(codes.shape[0]), words=occ_words_static(k))
     return out
 
 
@@ -209,6 +251,8 @@ def main():
                     help="31-mer budget of exp0's and exp3's simulated read sets")
     ap.add_argument("--out", default=None, help="directory for the chrome traces")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--perk", action="store_true",
+                    help="also the per-k fused step (A, sort, B) at the bench shape, k = 31")
     ap.add_argument("--sharded", action="store_true",
                     help="with --db: exp1 on one device and over a one-rank NCCL group")
     args = ap.parse_args()
@@ -219,6 +263,9 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip())
     result = {"bench_stages_ms": bench_stages(args.reps)}
     print("bench stages (ms, median):", json.dumps(result["bench_stages_ms"]))
+    if args.perk:
+        result["perk_stages_ms"] = perk_stages(args.reps)
+        print("per-k stages (ms, median):", json.dumps(result["perk_stages_ms"]))
     if args.db:
         with tempfile.TemporaryDirectory() as work:
             common = ["--database-root", args.db, "--work-root", work,
