@@ -187,10 +187,28 @@ Phases (any failure raises, so the exit code is non-zero):
      7b-7f's launches are counted from 0 and printed on a line of their
      own (the kernels line keeps phases 4-6's); A, B, the sort, the
      sweep's extraction and every scan mode must have launched.
+  8. the sharded CLI over N cards, where the machine has 2 or more:
+     `python -m torch.distributed.run --standalone --nproc-per-node N -m
+     khoice_tpu_torch run --mesh-shards N` (torchrun; NCCL, one card a
+     rank, cuda:{LOCAL_RANK}) as a subprocess in a session of its own,
+     each run in a fresh work root: exp1 on 4a's database at every N in
+     2 .. min(4, cards), exp2, exp3, exp4 and exp6 at the largest N on it
+     (each runs exp0 on rank 0 first while the other ranks wait), and
+     exp1 at the largest N on 4b's (the per-k occurrence: A, the sort and
+     B).  Every step_5/step_9 CSV, every exp2-4 CSV and every exp6 trial
+     and per-k file must be byte-equal to 4a's and 4b's single-device
+     files; a non-zero exit, a run past SHARDED_CLI_TIMEOUT_S (the
+     session is killed whole) or a byte difference fails the script.
+     Each run prints N, its wall with the ranks' start, and each rank's
+     rows sent and received in the exchange and peak device memory (rank
+     0's log line), with the cards' names and power limits.  On one card
+     it prints "8: skipped, 1 card visible (NCCL runs one rank per
+     card)" and runs nothing: phase 6 covers the one-rank group.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 
+import datetime
 import json
 import math
 import os
@@ -221,6 +239,7 @@ STREAM_HOLDS = 2  # chunk sorts of each 4c run held against the plain sort
 SORT_RUN = "exp1 streamed on 2 x 96 x 1 Mbp"  # the run whose sort launches are reported
 HOLD_6E = (15, 31, 49)  # one k per key-word class: 6e's held calls
 MULTIHOST_KS = (11, 21, 33, 49)  # 6f's ks
+SHARDED_CLI_TIMEOUT_S = 600  # one torchrun run of phase 8, the ranks' start included
 MODES = ("pivot_rest", "multi_pivot", "containment", "buckets")
 CSVS = {  # each experiment's CSVs under its work root
     1: ("step_5/within_datasets_analysis.csv", "step_9/across_datasets_analysis.csv"),
@@ -2454,6 +2473,133 @@ def entry_points():
     return counts
 
 
+def torchrun_cli(label, n, argv, work):
+    """`python -m torch.distributed.run --standalone --nproc-per-node n -m
+    khoice_tpu_torch run <argv> --work-root work --mesh-shards n` (torchrun:
+    one process a rank, each on cuda:{LOCAL_RANK}, NCCL), in a session of
+    its own that is killed whole if it outlasts SHARDED_CLI_TIMEOUT_S.  A
+    non-zero exit fails.  Prints and returns the wall with the ranks'
+    start and rank 0's log of each rank's rows sent and received and peak
+    device memory."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(n), "-m", "khoice_tpu_torch", "run", *argv, "--work-root", work,
+           "--mesh-shards", str(n)]
+    # the rendezvous is torchrun's; CUDA_VISIBLE_DEVICES stays, so that
+    # LOCAL_RANK counts the cards this process sees
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE")}
+    env["OMP_NUM_THREADS"] = "1"  # torchrun's own default: no thread pool per rank
+    t0, launched = time.perf_counter(), datetime.datetime.now()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SHARDED_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)  # torchrun and every rank it started
+        proc.communicate()
+        raise AssertionError(f"8 {label}: torchrun over {n} cards did not end within "
+                             f"{SHARDED_CLI_TIMEOUT_S} s") from None
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"8 {label}: torchrun over {n} cards exited {proc.returncode}:\n"
+                             f"{err[-6000:]}\n{out[-2000:]}")
+    found = re.findall(r"exchange by rank: (\[.*\])", err)
+    if len(found) != 1:
+        raise AssertionError(f"8 {label}: rank 0 logged no exchange line:\n{err[-4000:]}")
+    ranks = json.loads(found[0])
+    if [r["rank"] for r in ranks] != list(range(n)):
+        raise AssertionError(f"8 {label}: the exchange line has ranks {ranks}")
+    sent = sum(r["rows_sent"] for r in ranks)
+    if sent != sum(r["rows_received"] for r in ranks) or sent < 1:
+        raise AssertionError(f"8 {label}: rows sent and received over the group differ: {ranks}")
+    split = wall_split(label, err, launched, wall)
+    print(f"8 {label}, N = {n}: wall {wall:.2f} s with the ranks' start ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + " s); per rank (rows sent, rows received, peak device memory GiB): "
+          + "; ".join(f"rank {r['rank']} ({r['rows_sent']}, {r['rows_received']}, "
+                      f"{r['peak_device_bytes'] / 2**30:.2f})" for r in ranks)
+          + f" ({smi_line().replace(chr(10), '; ')})", flush=True)
+    return {"label": label, "n": n, "wall": wall, "ranks": ranks, "split": split}
+
+
+def wall_split(label, err, launched, wall):
+    """A torchrun run's wall split by rank 0's log lines (their host-clock
+    stamps, to the ms): start (launch to "sharded over": torchrun, the
+    interpreter, torch's import, the rendezvous), load (to "exp_type=":
+    every rank reads the database), before the stages (exp0 on rank 0,
+    the inputs), the stages (the stage driver's "run" to "done" lines),
+    the exchange count's gather, and the exit (the group's teardown and
+    the processes' end)."""
+    stamps = {}
+    for line in err.splitlines():
+        m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) khoice\.\w+ INFO (.*)", line)
+        if m:
+            at = (datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+                  - launched).total_seconds()
+            for key, head in (("sharded", "sharded over"), ("exp", "exp_type="),
+                              ("run", "run exp"), ("done", "done exp"),
+                              ("counted", "exchange by rank")):
+                if m.group(2).startswith(head):
+                    stamps.setdefault(key, at)
+                    if key == "done":
+                        stamps["last done"] = at
+    keys = ("sharded", "exp", "run", "last done", "counted")
+    missing = [key for key in keys if key not in stamps]
+    if missing:
+        raise AssertionError(f"8 {label}: rank 0 logged no {missing} line:\n{err[-4000:]}")
+    marks = [stamps[key] for key in keys]
+    parts = zip(("start", "load", "before the stages", "stages", "count"), [0] + marks, marks)
+    return {**{name: b - a for name, a, b in parts}, "exit": wall - marks[-1]}
+
+
+def sharded_cli_paths(tmp, db, db96, work1, csv30, work6, work96):
+    """8: `run --mesh-shards N` through torchrun over N cards, N in 2 ..
+    min(4, cards), each run in a fresh work root (exp2-4 and 6 run exp0 on
+    rank 0 first, the other ranks waiting on the group's store): exp1 at every
+    N on 4a's database; exp2, exp3, exp4 and exp6 at the largest N on it;
+    exp1 at the largest N on 4b's (the per-k occurrence with kernels A, the
+    sort and B).  Every step_5/step_9 CSV, every exp2-4 CSV and every exp6
+    trial and per-k file must be byte-equal to the single-device runs'
+    files: 4a's exp1 work root (work1), its 30-k exp2-4 CSV bytes by path
+    (csv30), its exp6 work root (work6) and 4b's exp1 work root (work96)."""
+    phase("8 the sharded CLI over N cards: torchrun ... run --mesh-shards N")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"8: skipped, {cards} card visible (NCCL runs one rank per card)", flush=True)
+        return
+    torch.cuda.empty_cache()  # rank 0 shares cuda:0 with this process
+    top = min(4, cards)
+    common = ["--kmers-per-dataset", "2000000"]
+    plan = [("exp1 on 4 x 8 x 2 Mbp", n, 1, db) for n in range(2, top + 1)]
+    plan += [(f"exp{t} on 4 x 8 x 2 Mbp", top, t, db) for t in (2, 3, 4, 6)]
+    plan += [("exp1 on 2 x 96 x 1 Mbp", top, 1, db96)]
+    runs = []
+    for label, n, exp_type, database in plan:
+        work = os.path.join(tmp, f"torchrun_{n}_exp{exp_type}_{os.path.basename(database)}")
+        argv = ["--exp-type", str(exp_type), "--database-root", database]
+        rec = torchrun_cli(label, n, argv + (common if exp_type != 1 else []), work)
+        rec.update(work=work, exp_type=exp_type, db=database)
+        runs.append(rec)
+    n_files = 0
+    for rec in runs:
+        work, exp_type = rec["work"], rec["exp_type"]
+        if exp_type == 1:
+            ref = work1 if rec["db"] == db else work96
+            pairs = [(os.path.join(work, rel), read_bytes(os.path.join(ref, rel)))
+                     for rel in CSVS[1]]
+        elif exp_type == 6:
+            pairs = [(os.path.join(work, rel), read_bytes(os.path.join(work6, rel)))
+                     for rel in exp6_files()]
+        else:
+            pairs = [(os.path.join(work, rel), csv30[rel]) for rel in CSVS[exp_type]]
+        same_bytes(f"8 {rec['label']} over {rec['n']} cards", pairs)
+        n_files += len(pairs)
+    print(f"8: {n_files} files of {len(runs)} torchrun runs byte-equal to the single-device "
+          f"runs' (every step_5/step_9 CSV, exp2-4's CSVs, exp6's trial and per-k files)",
+          flush=True)
+
+
 def kernel_record(name, source, replaces, launches, r, library_ms=None):
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2522,12 +2668,15 @@ def main():
         print(f"phase 6's launches (6a + 6b + 6c + 6d's two ranks + 6e + 6f's two processes): "
               f"{ {k: v for k, v in sharded_launches.items() if v} }; the kernels line adds "
               f"them to phase 4/5's", flush=True)
-    t0 = time.perf_counter()
-    entry_launches = entry_points()
-    walls["entry points 7"] = time.perf_counter() - t0
-    print(f"phase 7's launches (7b-7f, this process): "
-          f"{ {k: v for k, v in entry_launches.items() if v} }; not in the kernels line",
-          flush=True)
+        t0 = time.perf_counter()
+        entry_launches = entry_points()
+        walls["entry points 7"] = time.perf_counter() - t0
+        print(f"phase 7's launches (7b-7f, this process): "
+              f"{ {k: v for k, v in entry_launches.items() if v} }; not in the kernels line",
+              flush=True)
+        t0 = time.perf_counter()
+        sharded_cli_paths(tmp, db, db96, work1, csv30, work, work96)
+        walls["sharded CLI 8"] = time.perf_counter() - t0
     for kernel, err in errors.items():
         key = kernel.split()[0]  # "A keys", "A packed" -> "A"
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)

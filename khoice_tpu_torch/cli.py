@@ -8,7 +8,9 @@ fused path); exp0 and the MEM experiments exp5, 7 and 8 on the host, as
 the JAX package does, so they take no device.  exp1-4 run sharded over a
 key-range group of N ranks when `mesh_shards` (the flag or the config's)
 is N > 1, one process per rank on its own device, and so does exp6's
-read voting:
+read voting; at the end rank 0 logs each rank's rows sent and received
+in the exchange (its share for itself excluded) and its peak device
+memory:
 
     torchrun --nproc-per-node N -m khoice_tpu_torch run --exp-type 6 --mesh-shards N ...
 
@@ -22,6 +24,7 @@ a stage whose outputs exist is skipped (runtime/driver.py) unless --force.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -124,16 +127,23 @@ def cmd_run(args) -> int:
     owned = sharded and not dist.is_initialized()
     group = None
     if sharded:
-        from .dist.mesh import init_kv_group
+        from .dist import mesh
 
-        group = init_kv_group(device, world_size=cfg.mesh_shards)
+        group = mesh.init_kv_group(device, world_size=cfg.mesh_shards)
         device = group.device
         if group.rank:  # rank 0 logs at info
             logging.disable(logging.INFO)
         log.info("sharded over %d ranks (kv key-range group), rank 0 on %s",
                  group.world_size, device)
+        before = dict(mesh.exchanged)
     try:
-        return _run_trials(cfg, args, device, group)
+        rc = _run_trials(cfg, args, device, group)
+        if group is not None:
+            totals = mesh.exchange_totals(group, before)
+            log.info("exchange by rank: %s", json.dumps([
+                {"rank": r, "rows_sent": sent, "rows_received": received,
+                 "peak_device_bytes": peak} for r, (sent, received, peak) in enumerate(totals)]))
+        return rc
     finally:
         if group is not None:
             logging.disable(logging.NOTSET)

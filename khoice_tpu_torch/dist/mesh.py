@@ -13,12 +13,16 @@ is globally sorted.  NCCL serves CUDA devices, gloo the CPU.
 (after checking its world size), else initialises it from the `torchrun`
 environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT).
 Each rank takes the card `cuda:{LOCAL_RANK}`; two ranks are never mapped
-onto one card behind the caller's back.  `init_multihost` is the JAX
-package's (jax.distributed.initialize, then the global mesh): the same
-env:// initialisation, with the coordinator, process count and process id
-given as arguments where the environment lacks them; every rank of a
-torch.distributed group is its own process, on one host or several
-(dist/multihost.py).
+onto one card behind the caller's back.  While rank 0 works alone (exp0,
+exp2-4's per-k fallback, the output files) the other ranks wait in
+`KvGroup.barrier`, on the group's store and not in a collective, so the
+collectives keep their default timeout (NCCL's ten minutes) however long
+that work takes; torchrun ends every rank when one fails.
+`init_multihost` is the JAX package's (jax.distributed.initialize, then
+the global mesh): the same env:// initialisation, with the coordinator,
+process count and process id given as arguments where the environment
+lacks them; every rank of a torch.distributed group is its own process,
+on one host or several (dist/multihost.py).
 
 The split keys (`split_keys_for`) are the JAX package's uniform-CDF
 quantiles, numpy only, copied: canonical keys are min(fwd, rc) of two
@@ -33,6 +37,8 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -40,6 +46,12 @@ import torch.distributed as dist
 from ..engine.bits import key_words
 
 AXIS = "kv"
+BARRIER_POLL_S = 0.01
+
+# rows this process has sent to other ranks and received from them in
+# exchange_rows (its share for itself excluded), counted as the kernels
+# count their launches; exchange_totals gathers them
+exchanged = {"sent": 0, "received": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +64,18 @@ class KvGroup:
     device: torch.device
 
     def barrier(self) -> None:
-        dist.barrier()
+        """Return once every rank has called it as often as this one: each
+        rank counts its own calls on the process group's store, adds itself
+        to that call's key and polls it.  No collective is pending while
+        the ranks wait, so no timeout runs out however long rank 0 works
+        alone before it gets here."""
+        store = dist.distributed_c10d._get_default_store()
+        n = store.add(f"{AXIS}/barrier/rank_{self.rank}", 1)
+        key = f"{AXIS}/barrier/{n}"
+        arrived = store.add(key, 1)
+        while arrived < self.world_size:
+            time.sleep(BARRIER_POLL_S)
+            arrived = store.add(key, 0)
 
     def broadcast_flag(self, value: bool) -> bool:
         """Rank 0's `value`, on every rank."""
@@ -80,7 +103,25 @@ def exchange_rows(rows: torch.Tensor, send_counts, recv_counts) -> torch.Tensor:
     out = rows.new_empty((sum(recv_counts),) + tuple(rows.shape[1:]))
     dist.all_to_all_single(out, rows, output_split_sizes=list(recv_counts),
                            input_split_sizes=list(send_counts))
+    here = dist.get_rank()
+    exchanged["sent"] += sum(send_counts) - send_counts[here]
+    exchanged["received"] += sum(recv_counts) - recv_counts[here]
     return out
+
+
+def exchange_totals(group: KvGroup, since: dict) -> list:
+    """[(rows sent, rows received, peak device bytes)] of every rank, in
+    rank order, from one all_gather: the `exchanged` counts less `since`
+    (a copy taken earlier) and torch.cuda.max_memory_allocated of the
+    rank's card (0 on the CPU)."""
+    peak = (torch.cuda.max_memory_allocated(group.device)
+            if group.device.type == "cuda" else 0)
+    mine = torch.tensor([exchanged["sent"] - since["sent"],
+                         exchanged["received"] - since["received"], peak],
+                        dtype=torch.int64, device=group.device)
+    parts = [torch.empty_like(mine) for _ in range(group.world_size)]
+    dist.all_gather(parts, mine)
+    return [tuple(int(x) for x in p.tolist()) for p in parts]
 
 
 def gather_rows(rows: torch.Tensor, group: KvGroup) -> list:

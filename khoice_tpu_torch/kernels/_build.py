@@ -141,10 +141,13 @@ def load() -> ctypes.CDLL:
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         t0 = time.perf_counter()
+        # every rank of a group may start on a tree without the library:
+        # each builds in its own directory and renames its files in whole
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
             log = _compile(tmpdir)
-            with open(so + ".log", "w") as fd:
+            with open(os.path.join(tmpdir, "lib.log"), "w") as fd:
                 fd.write(log)
+            os.replace(os.path.join(tmpdir, "lib.log"), so + ".log")
             os.replace(os.path.join(tmpdir, "lib.so"), so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(so)

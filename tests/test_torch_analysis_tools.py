@@ -11,6 +11,7 @@ import math
 import os
 
 import numpy as np
+import torch
 
 from khoice_tpu.analysis import confusion_rollup as jrollup
 from khoice_tpu.analysis import msa as jmsa
@@ -18,6 +19,10 @@ from khoice_tpu.tools import download as jdownload
 from khoice_tpu_torch.analysis import msa
 from khoice_tpu_torch.analysis.confusion_rollup import rollup_confusion_dir
 from khoice_tpu_torch.tools import download
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 
 def _stub():

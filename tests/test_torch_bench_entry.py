@@ -27,6 +27,10 @@ from khoice_tpu.engine.occurrence import pack_members as jax_pack_members  # noq
 from khoice_tpu_torch.engine.ksweep import occurrence_histograms_sweep  # noqa: E402
 from khoice_tpu_torch.engine.occurrence import pack_members  # noqa: E402
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 SMALL = {"GENOME_LEN": 1 << 12, "SCALING_LEN": 1 << 11, "SCALING_WORLDS": (1, 2)}
 
 
@@ -139,6 +143,28 @@ def test_multichip_row_fails_on_a_differing_rank():
     with pytest.raises(AssertionError, match="k=31"):
         bench_torch.scaling_series(members, ks, want, torch.device("cpu"), [1], "gloo",
                                    shared_card=False)
+
+
+def test_headline_survives_a_failing_multichip_row(monkeypatch, capsys):
+    """bench.py's rule: a protocol row that raises does not cost the
+    headline.  With multichip_row raising, main still prints the four-key
+    last line, says why on stderr and returns 1 (a rank that disagrees is
+    a fault)."""
+    for name, value in SMALL.items():
+        monkeypatch.setattr(bench_torch, name, value)
+
+    def fail(device):
+        raise AssertionError("multi-card row: rank 1 of 2 (gloo) differs at k=31")
+
+    monkeypatch.setattr(bench_torch, "multichip_row", fail)
+    rc = bench_torch.main(["--device", "cpu"])
+    out, err = capsys.readouterr()
+    last = json.loads(out.splitlines()[-1])
+    assert set(last) == {"metric", "value", "unit", "vs_baseline"}
+    assert last["metric"] == _bench_py_dict("headline")["metric"]
+    assert not any("multi_chip" in line for line in out.splitlines())
+    assert "[bench_torch] multi-card row failed: AssertionError" in err
+    assert rc == 1
 
 
 def test_main_raises_without_cuda():

@@ -19,6 +19,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from khoice_tpu_torch.engine import streaming as st
 from khoice_tpu_torch.kernels import sort as ksort
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 SMALLEST_TILE = 2048  # radix_sort.cu: 256 threads x 8 items, the most status per element
 
 

@@ -41,6 +41,10 @@ from khoice_tpu_torch.pipelines.exp3 import run_exp3, simulate_exp3_reads
 from khoice_tpu_torch.pipelines.exp4 import run_exp4
 from test_exp023 import make_world, oracle_exp2_csvs
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KS = (4, 6, 8, 11, 16)  # even-heavy: palindromic classes exist
 
@@ -260,6 +264,7 @@ def test_cli_outputs_equal_jax_cli(database, tmp_path, exp_type):
         [sys.executable, "-m", "khoice_tpu_torch", *args, "--device", "cpu",
          "--work-root", str(tmp_path / "port")],
         cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     assert proc.returncode == 0, proc.stderr
     assert jax_main(args + ["--work-root", str(tmp_path / "jax")]) == 0

@@ -19,6 +19,10 @@ from khoice_tpu_torch.engine.occurrence import pack_members
 from khoice_tpu_torch.kernels import ksweep_scan
 from test_torch_ksweep_cuda import TILE, synthetic_ks, synthetic_sorted
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 K_GRID = list(range(7, 31)) + list(range(34, 50, 3))
 
 

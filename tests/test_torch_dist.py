@@ -18,6 +18,7 @@ tests/test_dist_ksweep.py and tests/test_dist_classify.py.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import torch_dist_ranks
 from conftest import cpu_devices
@@ -42,6 +43,10 @@ from khoice_tpu_torch.engine import ksweep_classify as tkc
 from khoice_tpu_torch.engine.ksweep import occurrence_histograms_sweep
 from khoice_tpu_torch.engine.occurrence import occurrence_histogram
 from khoice_tpu_torch.engine.session import KmerEngine
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 WORLD_SIZES = (1, 2, 3)
 RANK_TIMEOUT_S = 240

@@ -13,16 +13,27 @@ exp6 cases).  A config's `mesh_shards` takes the same path; a sharded run
 without one process per rank exits non-zero before any work.
 """
 
+import json
 import os
+import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 import torch_dist_ranks
 from khoice_tpu.cli import main as jax_main
 from khoice_tpu.io.fasta import FastaRecord, write_fasta
 from khoice_tpu_torch import cli as tcli
 from khoice_tpu_torch.dist.launch import run_ranks
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 KS = "7,11,21"  # one shared-sort class of three ks
 CSVS = {
@@ -146,3 +157,33 @@ def test_cli_sharded_run_refused_before_any_work(database, tmp_path, monkeypatch
         tcli.main(argv)
     assert "torchrun --nproc-per-node 2" in str(exc.value.code)
     assert not os.path.exists(work)
+
+
+def test_torchrun_exp1_mesh_shards_equals_single_device(database, tmp_path):
+    """The real launcher: `python -m torch.distributed.run --standalone
+    --nproc-per-node 2 -m khoice_tpu_torch run --exp-type 1 --mesh-shards 2
+    --device cpu` (gloo; RANK, LOCAL_RANK and WORLD_SIZE come from
+    torchrun, as on N cards) writes the single-device CLI's CSV bytes, and
+    rank 0 logs each rank's rows exchanged: as many sent as received over
+    the group."""
+    assert tcli.main(_args(1, database, tmp_path / "one") + ["--device", "cpu"]) == 0
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE")}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run(
+        ["timeout", "-k", "10", "240", sys.executable, "-m", "torch.distributed.run",
+         "--standalone", "--nproc-per-node", "2", "-m", "khoice_tpu_torch",
+         *_args(1, database, tmp_path / "torchrun"), "--mesh-shards", "2", "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=270)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    for rel in CSVS[1]:
+        port = _read(tmp_path / "torchrun" / rel)
+        assert port == _read(tmp_path / "one" / rel), rel
+        assert len(port.splitlines()) > 2
+    found = re.findall(r"exchange by rank: (\[.*\])", proc.stderr)
+    assert len(found) == 1, proc.stderr[-4000:]
+    ranks = json.loads(found[0])
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert sum(r["rows_sent"] for r in ranks) == sum(r["rows_received"] for r in ranks) > 0
+    assert all(r["peak_device_bytes"] == 0 for r in ranks)  # the CPU has no device peak

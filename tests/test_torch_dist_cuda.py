@@ -32,6 +32,10 @@ from khoice_tpu_torch.kernels import ksweep_scan, occ_scan
 from khoice_tpu_torch.kernels import vote as kvote
 from khoice_tpu_torch.kernels import sort as ksort
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 KS = [9, 12, 15, 21, 31, 35, 49]
 
 

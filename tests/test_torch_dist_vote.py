@@ -27,6 +27,10 @@ from khoice_tpu_torch.dist import vote as tvote
 from khoice_tpu_torch.dist.launch import run_ranks
 from khoice_tpu_torch.kernels.sort import sort_words
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 WORLD_SIZES = (1, 2, 3)
 RANK_TIMEOUT_S = 240
 

@@ -23,6 +23,10 @@ import demo_streaming_torch  # noqa: E402
 import hw_check_torch as hw  # noqa: E402
 from khoice_tpu.engine.ksweep import occurrence_histograms_sweep as jax_sweep  # noqa: E402
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 DEMO_KS = [7, 13, 21, 31, 49]
 
 
@@ -106,6 +110,7 @@ def test_new_entry_points_import_neither_jax_nor_the_jax_package():
         "print('clean')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=300)
     assert res.returncode == 0, res.stderr

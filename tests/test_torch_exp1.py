@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from conftest import random_dna
 from khoice_tpu.engine.session import KmerEngine as JaxEngine
@@ -15,6 +16,10 @@ from khoice_tpu_torch.engine.session import KmerEngine
 from khoice_tpu_torch.engine.streaming import DeviceBudgetExceeded
 from khoice_tpu_torch.pipelines.exp1 import run_exp1
 from test_exp1 import make_groups, oracle_exp1_csvs
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -88,6 +93,7 @@ def _cli(*args):
     return subprocess.run(
         [sys.executable, "-m", "khoice_tpu_torch", "run", *args],
         cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
 
 
@@ -179,7 +185,8 @@ def test_port_never_imports_jax(rng, tmp_path):
         "print('no jax')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "no jax" in proc.stdout
     work = tmp_path / "work"

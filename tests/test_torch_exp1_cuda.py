@@ -19,6 +19,10 @@ from khoice_tpu_torch.kernels import extract
 from khoice_tpu_torch.kernels import sort as ksort
 from khoice_tpu_torch.pipelines.exp1 import run_exp1
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 KS = [11, 21, 31, 35]  # every key-word class of the sweep and the per-k path
 
 

@@ -27,6 +27,10 @@ from khoice_tpu_torch.kernels.sort import sort_words_reference
 from khoice_tpu_torch.pipelines.exp6 import reads_matrix, run_exp6
 from test_classify import make_world
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 KS = (7, 11, 21, 33, 49)  # key words 1, 1, 2, 4, 4; "7" sorts after the others
 
 

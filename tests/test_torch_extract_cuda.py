@@ -19,6 +19,10 @@ from khoice_tpu_torch.engine import ksweep
 from khoice_tpu_torch.kernels import _build, extract
 from khoice_tpu_torch.kernels import extract_sweep as kxs
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 # the sweep's (kmax, KW, packed): each class of the 30-point grid
 # (engine/ksweep.py::sweep_classes; the master class 49 packed), and kmax 63
 SWEEP_CLASSES = [(30, 2, False), (46, 3, False), (49, 4, False), (49, 4, True),

@@ -17,6 +17,10 @@ from khoice_tpu_torch.engine import ksweep as tks
 from khoice_tpu_torch.engine.occurrence import pack_members
 from khoice_tpu_torch.kernels import extract_sweep as kxs
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 # (kmax, KW, packed): every class the wrappers take at these kmax; the
 # packed payload fits the spare bits at 35 and 49 only
 CLASSES = [(15, 1, False), (31, 2, False), (35, 3, False), (35, 3, True),

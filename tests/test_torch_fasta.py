@@ -8,9 +8,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from khoice_tpu.io.fasta import read_fasta as jax_read_fasta
 from khoice_tpu_torch.io import fasta
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 TEXT = (
     ">rec1 description\nacgtACGTnN\nGGGcccTTT\n\n>rec2\r\nAAAA\r\ncc\r\n"

@@ -19,6 +19,10 @@ sys.path.insert(0, ROOT)
 import __graft_entry__ as jax_graft  # noqa: E402
 import __graft_entry_torch__ as graft  # noqa: E402
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 
 def test_entry_equals_jax_entry():
     jfn, jargs = jax_graft.entry()

@@ -25,6 +25,10 @@ from khoice_tpu_torch.engine.ksweep import (
 from khoice_tpu_torch.engine.occurrence import pack_members
 from khoice_tpu_torch.kernels import ksweep_scan
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 K_GRID = list(range(7, 31)) + list(range(34, 50, 3))
 TILE = 2048  # elements per tile of the kernel (ksweep_scan_tile_elems)
 

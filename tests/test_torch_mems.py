@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import random_dna
 from khoice_tpu.mems import ms as jax_ms
@@ -25,6 +26,10 @@ from khoice_tpu_torch.pipelines.exp7 import run_exp7
 from khoice_tpu_torch.pipelines.exp8 import run_exp8, simulate_exp8_reads
 from test_mems import brute_ms, make_mem_world
 from test_torch_classify import _tree
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(ms.__file__)))
 

@@ -19,6 +19,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIST_KS = (11, 31)
@@ -59,6 +64,7 @@ def test_two_processes_equal_single_device(tmp_path):
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["OMP_NUM_THREADS"] = "1"
     worker = os.path.join(REPO, "tests", "torch_multihost_worker.py")
     outs = [tmp_path / f"rank{r}.json" for r in range(2)]
     procs = [subprocess.Popen([sys.executable, worker, str(port), str(r), "2", str(outs[r])],

@@ -35,6 +35,10 @@ from khoice_tpu_torch.kernels import occ_scan
 from khoice_tpu_torch.pipelines.exp1 import run_exp1
 from test_exp1 import oracle_exp1_csvs
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

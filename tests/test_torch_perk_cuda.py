@@ -16,6 +16,10 @@ from khoice_tpu_torch.engine import occurrence as occ
 from khoice_tpu_torch.kernels import extract, occ_scan
 from khoice_tpu_torch.kernels.sort import sort_words
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

@@ -26,6 +26,10 @@ from khoice_tpu.kernels.merge_pallas import T_TILE, merge_sort
 from khoice_tpu_torch.kernels import sort as ksort
 from torch_sort_cases import SENTINEL_CASES, packed_varying_digits, sentinel_case
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

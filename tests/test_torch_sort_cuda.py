@@ -16,6 +16,10 @@ import torch
 from khoice_tpu_torch.kernels import sort as ksort
 from torch_sort_cases import SENTINEL_CASES, sentinel_case
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 SENT = 0xFFFFFFFF
 
 

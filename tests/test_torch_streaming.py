@@ -9,6 +9,7 @@ budget with the CSV bytes of the in-core run and of the JAX package."""
 import os
 
 import pytest
+import torch
 
 from conftest import random_dna
 from khoice_tpu.engine.ksweep import occurrence_histograms_sweep as jax_sweep
@@ -19,6 +20,10 @@ from khoice_tpu_torch.engine.ksweep import occurrence_histograms_sweep
 from khoice_tpu_torch.pipelines.exp1 import run_exp1
 from test_exp1 import make_groups
 from test_torch_exp1 import _cli, _read, _write_db
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 KS = [7, 11, 16, 21, 27, 31, 34]
 

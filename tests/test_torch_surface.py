@@ -18,6 +18,10 @@ from khoice_tpu.io.packing import encode_records
 from khoice_tpu_torch import oracle as toracle
 from khoice_tpu_torch.engine import extract_canonical, extract_canonical_sweep
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 SWEEP_KS = tuple(range(7, 50))
 
 

@@ -21,6 +21,10 @@ from khoice_tpu.io import encode_records
 from khoice_tpu_torch.engine import kmc_format, table_io
 from khoice_tpu_torch.engine.ops import count_codes
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 
 def _tables(rng, k, length=500):
     """The same sequence counted by the port (on the CPU) and the JAX

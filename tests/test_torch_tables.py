@@ -7,6 +7,7 @@ equality throughout."""
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import random_dna
 from khoice_tpu.classify.annotate import build_annotation as jax_build_annotation
@@ -30,6 +31,10 @@ from khoice_tpu_torch.pipelines.exp3 import run_exp3, simulate_exp3_reads
 from khoice_tpu_torch.pipelines.exp4 import run_exp4
 from khoice_tpu_torch.reports.csvio import read_hist_txt
 from test_exp023 import make_world
+
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
 
 KS = (11, 31, 45)  # one, two and four key words
 

@@ -28,6 +28,10 @@ from khoice_tpu_torch.classify import annotate as ann
 from khoice_tpu_torch.kernels import _build
 from khoice_tpu_torch.kernels import vote as kvote
 
+# tier-1 runs six xdist workers on the host's cores: torch's default of
+# one intra-op thread per core in each would oversubscribe them
+torch.set_num_threads(1)
+
 ONES = 0xFFFFFFFF
 N_ROWS = (60, 300_000)  # one row per warp task, and many
 

@@ -1,5 +1,6 @@
-"""Rank programs of tests/test_torch_dist.py, tests/test_torch_dist_vote.py
-and tests/test_torch_dist_cli.py.
+"""Rank programs of tests/test_torch_dist.py, tests/test_torch_dist_vote.py,
+tests/test_torch_dist_cli.py, tests/test_torch_dist_exchange.py and
+tests/test_torch_dist_barrier.py.
 
 khoice_tpu_torch/dist/launch.py::run_ranks pickles a module-level function
 and calls it in every rank of a gloo group on the CPU.  A rank imports this
@@ -165,3 +166,88 @@ def votes(cases, device="cpu"):
     finally:
         kvote.read_votes = read_votes
     return out
+
+
+def exchange_count(case):
+    """dist/mesh.py's counter of rows exchanged, in this rank, over: a
+    hand-made exchange of known uneven shares (`case["shares"][rank]`), the
+    tables' count (dist/sharded.py), exp1's sweep (dist/ksweep.py), the
+    per-k occurrence (dist/occurrence.py) and exp6's votes (dist/vote.py).
+    Each step's counts are returned beside the rows that
+    torch.distributed.all_to_all_single moved with split sizes in that
+    step (watched here, this rank's share for itself left out), and the
+    run's totals as exchange_totals gathers them on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from khoice_tpu_torch.dist import mesh
+    from khoice_tpu_torch.dist.vote import sharded_read_votes_multi
+
+    g = init_kv_group("cpu")
+    seen = {"sent": 0, "received": 0}
+    all_to_all_single = dist.all_to_all_single
+
+    def watched(output, input, output_split_sizes=None, input_split_sizes=None, **kw):
+        if input_split_sizes is not None:  # rows; the counts go without splits
+            seen["sent"] += sum(input_split_sizes) - input_split_sizes[g.rank]
+            seen["received"] += sum(output_split_sizes) - output_split_sizes[g.rank]
+        return all_to_all_single(output, input, output_split_sizes, input_split_sizes, **kw)
+
+    def hand():
+        shares = case["shares"][g.rank]
+        rows = torch.arange(sum(shares) * 3, dtype=torch.int64).view(-1, 3)
+        return mesh.exchange_rows(rows, shares, mesh.exchange_counts(shares, g)).shape[0]
+
+    steps = [
+        ("hand", hand),
+        ("count", lambda: sh.sharded_count_codes(g, case["codes"], 21)),
+        ("sweep", lambda: sharded_occurrence_histograms_sweep(g, case["genomes"], [11, 21, 31])),
+        ("occurrence", lambda: sharded_occurrence_histogram(g, case["genomes"], 15)),
+        ("votes", lambda: sharded_read_votes_multi(g, case["genomes"], case["mats"], [11, 21])),
+    ]
+    before = dict(mesh.exchanged)
+    out = {"rank": g.rank, "steps": {}}
+    dist.all_to_all_single = watched
+    try:
+        for name, fn in steps:
+            counted, watched_before = dict(mesh.exchanged), dict(seen)
+            result = fn()
+            out["steps"][name] = {
+                "counted": {key: mesh.exchanged[key] - counted[key] for key in counted},
+                "watched": {key: seen[key] - watched_before[key] for key in seen},
+            }
+            if name == "hand":
+                out["hand_rows"] = result
+    finally:
+        dist.all_to_all_single = all_to_all_single
+    out["own"] = {key: mesh.exchanged[key] - before[key] for key in before}
+    out["totals"] = mesh.exchange_totals(g, before)
+    return out
+
+
+def solo_wait(store_path, solo_s, timeout_s):
+    """KvGroup.barrier while rank 0 works alone (a sleep of `solo_s`) on a
+    gloo group, made anew on the FileStore `store_path`, whose collectives
+    time out after `timeout_s` < solo_s; then one all_reduce of ones.
+    Returns (when rank 0's work ended, on rank 0, else None; when this rank
+    left the barrier; the all_reduce's sum), on the host's clock."""
+    import datetime
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    g = init_kv_group("cpu", world_size=world)
+    done = None
+    if rank == 0:
+        time.sleep(solo_s)
+        done = time.time()
+    g.barrier()
+    left = time.time()
+    ones = torch.ones(1, dtype=torch.int64)
+    dist.all_reduce(ones)
+    return done, left, int(ones.item())
