@@ -36,6 +36,7 @@ from ..engine.table import KmerTable
 from ..kernels import vote as kvote
 from ..kernels.extract import extract_canonical
 from ..kernels.sort import sort_words
+from ..utils import trace
 
 
 @dataclasses.dataclass
@@ -137,7 +138,8 @@ def read_votes(ann: Annotation, reads_codes: np.ndarray):
 
 
 def _to_host(out):
-    return tuple(t.cpu().numpy() for t in out)
+    with trace.span("engine:readback"):
+        return tuple(t.cpu().numpy() for t in out)
 
 
 def pack_group_texts(group_codes: List[np.ndarray], device="cuda"):
@@ -150,21 +152,23 @@ def pack_group_texts(group_codes: List[np.ndarray], device="cuda"):
 def flat_reads_device(reads_codes: np.ndarray, device="cuda"):
     """(flat uint8 codes on `device`, r, l): an [r, l] read matrix with a
     separator (4) after each row, flattened, uploaded once."""
-    r, l = reads_codes.shape
-    flat = np.concatenate([reads_codes, np.full((r, 1), 4, reads_codes.dtype)], axis=1)
-    return torch.from_numpy(flat.reshape(-1)).to(device), r, l
+    with trace.span("engine:upload"):
+        r, l = reads_codes.shape
+        flat = np.concatenate([reads_codes, np.full((r, 1), 4, reads_codes.dtype)], axis=1)
+        return torch.from_numpy(flat.reshape(-1)).to(device), r, l
 
 
 def concat_flat_reads(flats: Sequence[tuple]):
     """(one flat query array, spans) from flat_reads_device outputs: each
     read row ends with a separator, so no window spans two pivots;
     spans[i] = (offset, r, l) locates pivot i's rows."""
-    big = torch.cat([f for f, _, _ in flats])
-    spans, off = [], 0
-    for f, r, l in flats:
-        spans.append((off, r, l))
-        off += int(f.shape[0])
-    return big, spans
+    with trace.span("engine:concat_reads"):
+        big = torch.cat([f for f, _, _ in flats])
+        spans, off = [], 0
+        for f, r, l in flats:
+            spans.append((off, r, l))
+            off += int(f.shape[0])
+        return big, spans
 
 
 def _merge_join(codes: torch.Tensor, gids: torch.Tensor, flat: torch.Tensor, k: int, D: int):
@@ -194,8 +198,9 @@ def _merge_join(codes: torch.Tensor, gids: torch.Tensor, flat: torch.Tensor, k: 
 def _row_starts(spans, n: int, device) -> torch.Tensor:
     """int64 [R + 1]: the first flat position of every read row of the
     spans (rows of l + 1 positions), then n, the end of the last."""
-    parts = [off + torch.arange(r, device=device) * (l + 1) for off, r, l in spans]
-    return torch.cat(parts + [torch.tensor([n], device=device)])
+    with trace.span("engine:upload"):
+        parts = [off + torch.arange(r, device=device) * (l + 1) for off, r, l in spans]
+        return torch.cat(parts + [torch.tensor([n], device=device)])
 
 
 def read_votes_bulk_multi(group, big_flat: torch.Tensor, spans, k: int, num_datasets: int,
@@ -206,22 +211,24 @@ def read_votes_bulk_multi(group, big_flat: torch.Tensor, spans, k: int, num_data
     output.  The step's device bytes are checked against the budget
     (default ~85% of the device) first.  Returns a host (votes [r, D]
     int64, unmatched [r], n_kmers [r]) triple per span."""
-    kvote.check_datasets(num_datasets)
-    codes, gids = group
-    dev = codes.device
-    budget = device_budget_bytes or default_device_budget_bytes(dev)
-    check_device_budget(vote_bytes(codes.shape[0], big_flat.shape[0], key_words(k)), budget,
-                        f"vote (k={k})", dev)
-    skeys, spay, qvalid = _merge_join(codes, gids, big_flat, k, num_datasets)
-    qmask = kvote.vote_mask(skeys, spay, num_datasets, big_flat.shape[0])
-    del skeys, spay
-    votes, unmatched, n_kmers = _to_host(kvote.read_votes(
-        qmask, qvalid, _row_starts(spans, big_flat.shape[0], dev), num_datasets, vote_lcm(num_datasets)))
-    out, r0 = [], 0
-    for _off, r, _l in spans:
-        out.append((votes[r0:r0 + r], unmatched[r0:r0 + r], n_kmers[r0:r0 + r]))
-        r0 += r
-    return out
+    with trace.span("engine:vote"):
+        kvote.check_datasets(num_datasets)
+        codes, gids = group
+        dev = codes.device
+        budget = device_budget_bytes or default_device_budget_bytes(dev)
+        check_device_budget(vote_bytes(codes.shape[0], big_flat.shape[0], key_words(k)), budget,
+                            f"vote (k={k})", dev)
+        skeys, spay, qvalid = _merge_join(codes, gids, big_flat, k, num_datasets)
+        qmask = kvote.vote_mask(skeys, spay, num_datasets, big_flat.shape[0])
+        del skeys, spay
+        votes, unmatched, n_kmers = _to_host(kvote.read_votes(
+            qmask, qvalid, _row_starts(spans, big_flat.shape[0], dev), num_datasets,
+            vote_lcm(num_datasets)))
+        out, r0 = [], 0
+        for _off, r, _l in spans:
+            out.append((votes[r0:r0 + r], unmatched[r0:r0 + r], n_kmers[r0:r0 + r]))
+            r0 += r
+        return out
 
 
 def read_votes_bulk(group, reads_codes, k: int, num_datasets: int, device="cuda"):

@@ -35,6 +35,7 @@ import torch.distributed as dist
 from .config import KhoiceConfig
 from .io.fasta import read_fasta
 from .runtime.driver import Driver, Stage
+from .utils import trace
 from .utils.logging import get_logger
 
 log = get_logger("khoice.cli")
@@ -77,18 +78,26 @@ def _load_exp0(cfg: KhoiceConfig, db, root: str) -> dict:
     """Re-load a previously produced exp0 trial layout."""
     troot = _trial_root(cfg, root)
     pivots, nonpivots, reads = {}, {}, {}
-    for num in sorted(db):
-        with open(os.path.join(troot, f"exp0_pivot_genomes/dataset_{num}/pivot_name.txt")) as fd:
-            pivots[num] = fd.read().strip()
-        with open(os.path.join(troot, f"exp0_nonpivot_genomes/dataset_{num}/nonpivot_names.txt")) as fd:
-            nonpivots[num] = [x.strip() for x in fd if x.strip()]
-        for rt in ("illumina", "ont"):
-            path = os.path.join(troot, f"exp0_pivot_reads/dataset_{num}/{rt}/pivot_{num}_subset.fa")
-            reads[(num, rt)] = [r.seq for r in read_fasta(path)]
+    with trace.span("io:load_exp0"):
+        for num in sorted(db):
+            with open(os.path.join(troot, f"exp0_pivot_genomes/dataset_{num}/pivot_name.txt")) as fd:
+                pivots[num] = fd.read().strip()
+            with open(os.path.join(troot, f"exp0_nonpivot_genomes/dataset_{num}/nonpivot_names.txt")) as fd:
+                nonpivots[num] = [x.strip() for x in fd if x.strip()]
+            for rt in ("illumina", "ont"):
+                path = os.path.join(troot, f"exp0_pivot_reads/dataset_{num}/{rt}/pivot_{num}_subset.fa")
+                reads[(num, rt)] = [r.seq for r in read_fasta(path)]
     return {"pivots": pivots, "nonpivots": nonpivots, "reads": reads}
 
 
 def cmd_run(args) -> int:
+    """The `run` command, in its span `cli:run` (utils/trace.py); what it
+    loaded is freed inside the span."""
+    with trace.span("cli:run"):
+        return _cmd_run(args)
+
+
+def _cmd_run(args) -> int:
     cfg = KhoiceConfig.from_yaml(args.config) if args.config else KhoiceConfig()
     if args.work_root:
         cfg.work_root = args.work_root

@@ -39,6 +39,7 @@ from ..kernels.ksweep_scan import (  # noqa: F401  (PACK_NIO_BITS, scan_multi_k_
 from ..kernels.extract import occ_words_static
 from ..kernels.extract_sweep import doubled_elements, extract_fwd_sweep
 from ..kernels.sort import sort_words
+from ..utils import trace
 from ..utils.logging import get_logger
 from .occurrence import occurrence_histogram_packed, pack_members
 
@@ -137,12 +138,14 @@ def sweep_class_hists(codes: torch.Tensor, gids: torch.Tensor, n_members: int, k
     """{k: occurrence histogram} of one class of plan_sweep's plan: ONE sort
     of the doubled text and ONE scan serve all of its ks (the JAX package's
     `_sweep_class_fn`)."""
-    skeys, spay = _sweep_doubled(codes, gids, kmax, KW, packed)
-    raw = scan_multi_k(skeys, spay, cks, n_members, cs, packed)
-    del skeys, spay
-    hists = ((raw[0] + raw[1]) // 2).cpu().tolist()
-    top = min(n_members, cx)
-    return {k: hists[i][:top] + [0] * (cx - top) for i, k in enumerate(cks)}
+    with trace.span("engine:sweep_class"):
+        skeys, spay = _sweep_doubled(codes, gids, kmax, KW, packed)
+        raw = scan_multi_k(skeys, spay, cks, n_members, cs, packed)
+        del skeys, spay
+        with trace.span("engine:readback"):
+            hists = ((raw[0] + raw[1]) // 2).cpu().tolist()
+            top = min(n_members, cx)
+            return {k: hists[i][:top] + [0] * (cx - top) for i, k in enumerate(cks)}
 
 
 def occurrence_histograms_sweep_packed(
@@ -160,21 +163,23 @@ def occurrence_histograms_sweep_packed(
     ks, or every k of a group over the 64-member mask) take the per-k
     fused path, one sort per k (occurrence.occurrence_histogram_packed),
     as the JAX package's sweep does."""
-    codes, gids = packed
-    classes, remaining = plan_sweep(ks, n_members)
-    if n_members > MASK_MEMBERS and len(remaining) >= 3:
-        log.warning(
-            "shared-sort sweep disabled: %d members > %d (scan mask width); "
-            "falling back to %d per-k fused sorts — expect ~%dx the sweep's "
-            "sort volume for this group",
-            n_members, MASK_MEMBERS, len(remaining), len(remaining),
-        )
-    out: Dict[int, List[int]] = {}
-    for kmax, KW, cks, pay_packed in classes:
-        out.update(sweep_class_hists(codes, gids, n_members, kmax, KW, cks, pay_packed, cs, cx))
-    for k in remaining:
-        out[k] = occurrence_histogram_packed(packed, n_members, k, cs=cs, cx=cx)
-    return out
+    with trace.span("engine:sweep"):
+        codes, gids = packed
+        classes, remaining = plan_sweep(ks, n_members)
+        if n_members > MASK_MEMBERS and len(remaining) >= 3:
+            log.warning(
+                "shared-sort sweep disabled: %d members > %d (scan mask width); "
+                "falling back to %d per-k fused sorts — expect ~%dx the sweep's "
+                "sort volume for this group",
+                n_members, MASK_MEMBERS, len(remaining), len(remaining),
+            )
+        out: Dict[int, List[int]] = {}
+        for kmax, KW, cks, pay_packed in classes:
+            out.update(sweep_class_hists(codes, gids, n_members, kmax, KW, cks, pay_packed, cs,
+                                         cx))
+        for k in remaining:
+            out[k] = occurrence_histogram_packed(packed, n_members, k, cs=cs, cx=cx)
+        return out
 
 
 def occurrence_histograms_sweep(

@@ -37,6 +37,7 @@ import torch
 from ..kernels.extract import GID_BITS, PACK_KMAX, extract_canonical, extract_packed
 from ..kernels.occ_scan import occ_hist, occ_hist_packed, run_occurrences
 from ..kernels.sort import sort_words
+from ..utils import trace
 from .bits import key_words
 from .table import KmerTable
 
@@ -58,12 +59,13 @@ def pack_members(member_codes: Sequence[np.ndarray], device):
     separators, each position labelled with its member index.  Only the
     codes (1 B per position) cross to the device; the gids are expanded
     there from the member lengths."""
-    codes, starts = _member_layout(member_codes)
-    lengths = torch.from_numpy(np.diff(np.append(starts, codes.shape[0]))).to(device)
-    gids = torch.repeat_interleave(
-        torch.arange(len(member_codes), dtype=torch.int64, device=device), lengths
-    )
-    return torch.from_numpy(codes).to(device), gids
+    with trace.span("engine:upload"):
+        codes, starts = _member_layout(member_codes)
+        lengths = torch.from_numpy(np.diff(np.append(starts, codes.shape[0]))).to(device)
+        gids = torch.repeat_interleave(
+            torch.arange(len(member_codes), dtype=torch.int64, device=device), lengths
+        )
+        return torch.from_numpy(codes).to(device), gids
 
 
 def gid_packable(n_members: int, k: int) -> bool:
@@ -108,15 +110,17 @@ def occurrence_histogram_packed(packed, n_members: int, k: int, cs: int = 5000,
     """hist[i-1] = number of distinct canonical k-mers present in exactly i
     members (capped at cs), a list of cx ints, over packed (codes, gids)
     tensors (pack_members); runs on their device."""
-    codes, gids = packed
-    n_bins = min(n_members, cx)
-    if gid_packable(n_members, k):
-        sp, _ = _sorted_pairs(codes, gids, k, True)
-        small = occ_hist_packed(sp, n_bins, cs)
-    else:
-        keys, gid = _sorted_pairs(codes, gids, k, False)
-        small = occ_hist(keys, gid, n_bins, cs)
-    return small.tolist() + [0] * (cx - n_bins)
+    with trace.span("engine:perk"):
+        codes, gids = packed
+        n_bins = min(n_members, cx)
+        if gid_packable(n_members, k):
+            sp, _ = _sorted_pairs(codes, gids, k, True)
+            small = occ_hist_packed(sp, n_bins, cs)
+        else:
+            keys, gid = _sorted_pairs(codes, gids, k, False)
+            small = occ_hist(keys, gid, n_bins, cs)
+        with trace.span("engine:readback"):
+            return small.tolist() + [0] * (cx - n_bins)
 
 
 def occurrence_histogram(member_codes: Sequence[np.ndarray], k: int, device,

@@ -26,6 +26,8 @@ from typing import Iterable, List
 
 import numpy as np
 
+from ..utils import trace
+
 __all__ = [
     "FastaRecord",
     "read_fasta",
@@ -148,16 +150,17 @@ def _open_maybe_gz(path: str, mode: str = "rt"):
 
 
 def read_fasta(path: str) -> List[FastaRecord]:
-    with _open_maybe_gz(path, "rb") as fd:
-        data = fd.read()
-    scanned = _scan_native(data, to_codes=False)
-    if scanned is not None:
-        names, seqs = scanned
-        return [
-            FastaRecord(nm, sq.tobytes().decode("ascii", errors="replace"))
-            for nm, sq in zip(names, seqs)
-        ]
-    return _read_fasta_py(data)
+    with trace.span("io:read_fasta"):
+        with _open_maybe_gz(path, "rb") as fd:
+            data = fd.read()
+        scanned = _scan_native(data, to_codes=False)
+        if scanned is not None:
+            names, seqs = scanned
+            return [
+                FastaRecord(nm, sq.tobytes().decode("ascii", errors="replace"))
+                for nm, sq in zip(names, seqs)
+            ]
+        return _read_fasta_py(data)
 
 
 def _read_fasta_py(data: bytes) -> List[FastaRecord]:

@@ -13,6 +13,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from ..utils import trace
+
 SEP_CODE = np.uint8(4)
 
 _LUT = np.full(256, 4, np.uint8)
@@ -35,17 +37,18 @@ def encode_records(seqs: Iterable[str], pad_to: int | None = None) -> np.ndarray
     Optionally right-pad with separator codes to a fixed length (static
     shapes keep XLA recompilation bounded; pad windows are invalid anyway).
     """
-    parts = []
-    first = True
-    for s in seqs:
-        if not first:
-            parts.append(np.array([SEP_CODE]))
-        parts.append(encode_seq(s))
-        first = False
-    if not parts:
-        out = np.zeros(0, np.uint8)
-    else:
-        out = np.concatenate(parts)
+    with trace.span("io:encode"):
+        parts = []
+        first = True
+        for s in seqs:
+            if not first:
+                parts.append(np.array([SEP_CODE]))
+            parts.append(encode_seq(s))
+            first = False
+        if not parts:
+            out = np.zeros(0, np.uint8)
+        else:
+            out = np.concatenate(parts)
     if pad_to is not None:
         if out.shape[0] > pad_to:
             raise ValueError(f"encoded length {out.shape[0]} exceeds pad_to {pad_to}")

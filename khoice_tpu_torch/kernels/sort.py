@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import _build
 
 MAX_WORDS = 5
@@ -141,11 +142,16 @@ def sort_stats(words: torch.Tensor):
         return sort_stats_reference(words)
     _device_check(words)
     lib = _build.load()
-    with torch.cuda.device(words.device):
+    with trace.span("kernel:sort_plan"), torch.cuda.device(words.device):
         return _first_pass(lib, words, None, torch.cuda.current_stream(words.device).cuda_stream)[2]
 
 
 def _launch(words: torch.Tensor, payload: torch.Tensor | None):
+    with trace.span("kernel:sort"):
+        return _launch_passes(words, payload)
+
+
+def _launch_passes(words: torch.Tensor, payload: torch.Tensor | None):
     global launches, last_plan
     _device_check(words)
     W, n = words.shape
@@ -156,8 +162,9 @@ def _launch(words: torch.Tensor, payload: torch.Tensor | None):
     pay = payload is not None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rec, stats, plan_in = _first_pass(lib, words, payload, stream)
-        digits, ones = plan_passes(*plan_in)
+        with trace.span("kernel:sort_plan"):
+            rec, stats, plan_in = _first_pass(lib, words, payload, stream)
+            digits, ones = plan_passes(*plan_in)
         launches += 1
         last_plan = (digits, ones)
         if not digits:  # sorted already

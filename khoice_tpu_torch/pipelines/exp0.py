@@ -20,6 +20,7 @@ import numpy as np
 from ..config import KhoiceConfig
 from ..io.fasta import FastaRecord, read_fasta, write_fasta
 from ..sim.reads import sim_illumina, sim_ont, subset_reads_kmers
+from ..utils import trace
 
 READ_TYPES = ("illumina", "ont")
 
@@ -124,13 +125,14 @@ def load_database_dir(database_root: str) -> Dict[int, Dict[str, List[str]]]:
     """Read a reference-layout database dir: dataset_{i}/*.fna.gz."""
     out: Dict[int, Dict[str, List[str]]] = {}
     i = 1
-    while os.path.isdir(os.path.join(database_root, f"dataset_{i}")):
-        ddir = os.path.join(database_root, f"dataset_{i}")
-        genomes = {}
-        for f in sorted(os.listdir(ddir)):
-            if f.endswith(".fna.gz") or f.endswith(".fna") or f.endswith(".fa"):
-                name = f.split(".fna")[0].split(".fa")[0]
-                genomes[name] = [r.seq for r in read_fasta(os.path.join(ddir, f))]
-        out[i] = genomes
-        i += 1
+    with trace.span("io:read_database"):
+        while os.path.isdir(os.path.join(database_root, f"dataset_{i}")):
+            ddir = os.path.join(database_root, f"dataset_{i}")
+            genomes = {}
+            for f in sorted(os.listdir(ddir)):
+                if f.endswith(".fna.gz") or f.endswith(".fna") or f.endswith(".fa"):
+                    name = f.split(".fna")[0].split(".fa")[0]
+                    genomes[name] = [r.seq for r in read_fasta(os.path.join(ddir, f))]
+            out[i] = genomes
+            i += 1
     return out

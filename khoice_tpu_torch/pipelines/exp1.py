@@ -36,6 +36,7 @@ from ..engine.session import KmerEngine
 from ..io.packing import encode_records
 from ..reports.csvio import read_hist_txt, write_csv_rows, write_hist_txt
 from ..reports.metrics import append_group_normalization, summarize_histogram_type1
+from ..utils import trace
 from ..utils.logging import get_logger
 
 STEP5_HEADER = (
@@ -84,6 +85,13 @@ def run_exp1(
     run_exp1 with the same arguments, and only rank 0 writes the files.
 
     Returns {"step_5": csv_path, "step_9": csv_path}."""
+    with trace.span("pipeline:exp1"):  # the body's locals are freed inside the span
+        return _run_exp1(groups, k_values, out_dir, device, engine, union_cs, count_cs, hist_cx,
+                         write_hists, fused, device_budget_bytes, group)
+
+
+def _run_exp1(groups, k_values, out_dir, device, engine, union_cs, count_cs, hist_cx,
+              write_hists, fused, device_budget_bytes, group) -> Dict[str, str]:
     device = torch.device(device)
     group_nums = sorted(groups)
     ks_list = [int(k) for k in k_values]
@@ -122,12 +130,13 @@ def run_exp1(
 
     if fused:
         within_all = {num: sweep_members(codes[num], f"group {num}") for num in group_nums}
-        group_concat = [
-            np.concatenate(
-                [np.concatenate([c, np.full(1, 4, np.uint8)]) for c in codes[num]]
-            )
-            for num in group_nums
-        ]
+        with trace.span("io:join_groups"):
+            group_concat = [
+                np.concatenate(
+                    [np.concatenate([c, np.full(1, 4, np.uint8)]) for c in codes[num]]
+                )
+                for num in group_nums
+            ]
         across_all = sweep_members(group_concat, "across-groups")
     else:
         eng = engine or KmerEngine(device, budget)

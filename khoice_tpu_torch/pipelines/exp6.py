@@ -37,6 +37,7 @@ from ..classify.confusion import (
     write_confusion_matrix,
 )
 from ..io.packing import encode_records, encode_seq
+from ..utils import trace
 from .exp4 import glob_lexicographic
 
 READ_TYPE_LABEL = {"illumina": "short", "ont": "long"}
@@ -46,12 +47,13 @@ def reads_matrix(reads: Sequence[str]) -> np.ndarray:
     """[R, Lmax] uint8 code matrix, short reads padded with separator 4s
     (one encode pass; boolean assignment fills row-major, which is the
     reads' concatenation order)."""
-    n = len(reads)
-    lens = np.fromiter((len(r) for r in reads), np.int64, n)
-    lmax = int(lens.max())
-    out = np.full((n, lmax), 4, np.uint8)
-    out[np.arange(lmax)[None, :] < lens[:, None]] = encode_seq("".join(reads))
-    return out
+    with trace.span("io:reads_matrix"):
+        n = len(reads)
+        lens = np.fromiter((len(r) for r in reads), np.int64, n)
+        lmax = int(lens.max())
+        out = np.full((n, lmax), 4, np.uint8)
+        out[np.arange(lmax)[None, :] < lens[:, None]] = encode_seq("".join(reads))
+        return out
 
 
 def run_exp6(
@@ -71,6 +73,13 @@ def run_exp6(
     over `group`'s ranks (a dist/mesh.py KvGroup; every rank must hold the
     same texts and reads), within `device_budget_bytes` (default ~85% of
     the device).  Returns the trial accuracy CSV path."""
+    with trace.span("pipeline:exp6"):  # the body's locals are freed inside the span
+        return _run_exp6(pivot_reads, rest_of_set, k_values, out_dir, device, read_type, trial,
+                         seed, device_budget_bytes, group)
+
+
+def _run_exp6(pivot_reads, rest_of_set, k_values, out_dir, device, read_type, trial, seed,
+              device_budget_bytes, group) -> str:
     nums = sorted(rest_of_set)
     d = len(nums)
     label = READ_TYPE_LABEL.get(read_type, read_type)
@@ -93,15 +102,18 @@ def run_exp6(
         if group.rank != 0:  # rank 0 writes
             return final
     for k in k_values:
-        cm = []
-        for num, (votes, _unmatched, _nk) in zip(nums, votes_of(k)):
-            rng = np.random.default_rng([seed, trial, k, num])
-            cm.append(list(read_level_confusion_row(votes, d, rng)))
+        votes = votes_of(k)
+        with trace.span("reports:confusion"):
+            cm = []
+            for num, (v, _unmatched, _nk) in zip(nums, votes):
+                rng = np.random.default_rng([seed, trial, k, num])
+                cm.append(list(read_level_confusion_row(v, d, rng)))
+            del votes
         # the regular and with-unidentified matrices take the SAME class
         # increments (reference merge_lists.py:182-183)
         _write_k_outputs(acc_dir, k, cm, [list(row) for row in cm], d)
 
-    with open(final, "w") as out_fd:
+    with trace.span("reports:exp6_outputs"), open(final, "w") as out_fd:
         # header printf'd before the cat in the reference (exp_type_6.smk:357)
         out_fd.write("k,pivotnum,TP,TN,FP,FN,TP-U,TN-U,FP-U,FN-U\n")
         for k in glob_lexicographic(k_values):
@@ -111,17 +123,18 @@ def run_exp6(
 
 
 def _write_k_outputs(acc_dir: str, k: int, cm, cm_ucol, d: int) -> None:
-    write_confusion_matrix(
-        os.path.join(acc_dir, f"confusion_matrix/k_{k}_confusion_matrix.txt"), cm
-    )
-    write_confusion_matrix(
-        os.path.join(
-            acc_dir, f"confusion_matrix/k_{k}_confusion_matrix_with_unidentified.txt"
-        ),
-        cm_ucol,
-    )
-    write_accuracy_csv(
-        os.path.join(acc_dir, f"values/k_{k}_accuracy_values.csv"),
-        accuracy_values(cm, d, str(k)),
-        accuracy_values(cm_ucol, d, str(k)),
-    )
+    with trace.span("reports:exp6_outputs"):
+        write_confusion_matrix(
+            os.path.join(acc_dir, f"confusion_matrix/k_{k}_confusion_matrix.txt"), cm
+        )
+        write_confusion_matrix(
+            os.path.join(
+                acc_dir, f"confusion_matrix/k_{k}_confusion_matrix_with_unidentified.txt"
+            ),
+            cm_ucol,
+        )
+        write_accuracy_csv(
+            os.path.join(acc_dir, f"values/k_{k}_accuracy_values.csv"),
+            accuracy_values(cm, d, str(k)),
+            accuracy_values(cm_ucol, d, str(k)),
+        )

@@ -12,26 +12,30 @@ from __future__ import annotations
 import os
 from typing import List, Sequence
 
+from ..utils import trace
+
 __all__ = ["write_hist_txt", "read_hist_txt", "write_csv_rows"]
 
 
 def write_hist_txt(path: str, hist: Sequence[int], cx: int = 10000) -> None:
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as fd:
-        for i in range(cx):
-            v = int(hist[i]) if i < len(hist) else 0
-            fd.write(f"{i + 1}\t{v}\n")
+    with trace.span("reports:write_hist"):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fd:
+            for i in range(cx):
+                v = int(hist[i]) if i < len(hist) else 0
+                fd.write(f"{i + 1}\t{v}\n")
 
 
 def read_hist_txt(path: str) -> List[int]:
-    with open(path) as fd:
+    with trace.span("reports:read_hist"), open(path) as fd:
         return [int(line.split()[1]) for line in fd if line.strip()]
 
 
 def write_csv_rows(path: str, header: str, rows: List[list]) -> None:
     """Write rows as str()-joined CSV exactly like the reference run: blocks."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as fd:
-        fd.write(header)
-        for row in rows:
-            fd.write(",".join(str(x) for x in row) + "\n")
+    with trace.span("reports:csv"):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as fd:
+            fd.write(header)
+            for row in rows:
+                fd.write(",".join(str(x) for x in row) + "\n")

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+from ..utils import trace
+
 __all__ = ["summarize_histogram_type1", "summarize_histogram_type2"]
 
 
@@ -33,27 +35,28 @@ def summarize_histogram_type1(
     delta_frac]; band boundaries are max(int(p*n),1), overridden to [5,20]
     for the across-group analysis (reference exp_type_1.smk:129-134).
     """
-    total = sum(hist_counts)
+    with trace.span("reports:summarize"):
+        total = sum(hist_counts)
 
-    b = [max(int(p * num_dataset_members), 1) for p in (0.25, 0.75)]
-    if across_group_analysis:
-        b = [5, 20]
+        b = [max(int(p * num_dataset_members), 1) for p in (0.25, 0.75)]
+        if across_group_analysis:
+            b = [5, 20]
 
-    m = [0.0] * 7
-    m[0] = round(hist_counts[0] / total, 3)
-    m[1] = round(sum(hist_counts[i] for i in range(1, b[0])) / total, 3)
-    m[2] = round(sum(hist_counts[i] for i in range(b[0], b[1])) / total, 3)
-    m[3] = round(sum(hist_counts[i] for i in range(b[1], len(hist_counts))) / total, 3)
+        m = [0.0] * 7
+        m[0] = round(hist_counts[0] / total, 3)
+        m[1] = round(sum(hist_counts[i] for i in range(1, b[0])) / total, 3)
+        m[2] = round(sum(hist_counts[i] for i in range(b[0], b[1])) / total, 3)
+        m[3] = round(sum(hist_counts[i] for i in range(b[1], len(hist_counts))) / total, 3)
 
-    assert abs(sum(m[0:4]) - 1) < 0.05, "histogram bands do not sum to ~1"
+        assert abs(sum(m[0:4]) - 1) < 0.05, "histogram bands do not sum to ~1"
 
-    m[4] = round(sum((i + 1) * (hist_counts[i] / total) for i in range(len(hist_counts))), 4)
-    m[5] = round(
-        sum(((i + 1) / num_dataset_members) * (hist_counts[i] / total) for i in range(len(hist_counts))),
-        4,
-    )
-    m[6] = round(total / k, 4)
-    return m
+        m[4] = round(sum((i + 1) * (hist_counts[i] / total) for i in range(len(hist_counts))), 4)
+        m[5] = round(
+            sum(((i + 1) / num_dataset_members) * (hist_counts[i] / total) for i in range(len(hist_counts))),
+            4,
+        )
+        m[6] = round(total / k, 4)
+        return m
 
 
 def summarize_histogram_type2(
@@ -108,9 +111,10 @@ def append_group_normalization(all_metrics: List[list], group_ids: Sequence[str]
     appends the normalized value as the last CSV column
     (exp_type_1.smk:218-226).
     """
-    for gid in group_ids:
-        values = [row[8] for row in all_metrics if row[0] == gid]
-        max_ratio = max(values)
-        for row in all_metrics:
-            if row[0] == gid:
-                row.append(round(row[8] / max_ratio, 4))
+    with trace.span("reports:summarize"):
+        for gid in group_ids:
+            values = [row[8] for row in all_metrics if row[0] == gid]
+            max_ratio = max(values)
+            for row in all_metrics:
+                if row[0] == gid:
+                    row.append(round(row[8] / max_ratio, 4))

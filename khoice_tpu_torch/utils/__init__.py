@@ -1,4 +1,4 @@
 # Copied from khoice_tpu/utils/__init__.py.
-from .logging import get_logger, stage_timer, Throughput
+from .logging import get_logger
 
-__all__ = ["get_logger", "stage_timer", "Throughput"]
+__all__ = ["get_logger"]

@@ -22,7 +22,9 @@
    first, unprofiled); prints the wall time, the top device ops and the
    device-busy share: the union of the trace's kernel, memcpy and memset
    intervals over the wall (overlaps counted once).  --out also keeps
-   the chrome traces there.
+   the chrome traces there, with the port's spans (utils/trace.py:
+   `cli:run`, `io:read_fasta`, `engine:readback`, ...) on the host
+   thread.
 4. With --db and --sharded: `run_exp1` on the database's groups (read
    once, before the runs) on one device and over a key-range group of one
    rank on NCCL (dist/), in turns (single, sharded, sharded, single),
