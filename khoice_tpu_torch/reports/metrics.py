@@ -20,7 +20,23 @@ from typing import List, Sequence
 
 from ..utils import trace
 
-__all__ = ["summarize_histogram_type1", "summarize_histogram_type2"]
+__all__ = ["summarize_histogram_type1", "summarize_histogram_type2", "nonzero_extent"]
+
+
+def nonzero_extent(hist: Sequence[int]) -> int:
+    """1 + the index of the last nonzero bin of `hist`, 0 if it has none.
+
+    A bisection of the zero tail, each step one `any` over a slice, in C:
+    an occurrence histogram over n members has at most n nonzero bins
+    however far it is padded."""
+    lo, hi = 0, len(hist)
+    while lo < hi:  # hist[hi:] is all zero; the last nonzero bin is at lo - 1 or past it
+        mid = (lo + hi) // 2
+        if any(hist[mid:hi]):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
 
 
 def summarize_histogram_type1(
@@ -34,25 +50,32 @@ def summarize_histogram_type1(
     [%1_occ, %<=25%, %25-75, %>=75, unique_stat, unique_stat_norm,
     delta_frac]; band boundaries are max(int(p*n),1), overridden to [5,20]
     for the across-group analysis (reference exp_type_1.smk:129-134).
+
+    Works over the bins up to the last nonzero one, and the floats are the
+    padded list's bit for bit: the integer sums are exact, a band past the
+    last nonzero bin is an empty slice and sums to 0, and each bin past it
+    adds +0.0 to m[4] and m[5], which changes neither a float sum nor its
+    running compensation.
     """
     with trace.span("reports:summarize"):
-        total = sum(hist_counts)
+        h = hist_counts[:max(nonzero_extent(hist_counts), 1)]
+        total = sum(h)
 
         b = [max(int(p * num_dataset_members), 1) for p in (0.25, 0.75)]
         if across_group_analysis:
             b = [5, 20]
 
         m = [0.0] * 7
-        m[0] = round(hist_counts[0] / total, 3)
-        m[1] = round(sum(hist_counts[i] for i in range(1, b[0])) / total, 3)
-        m[2] = round(sum(hist_counts[i] for i in range(b[0], b[1])) / total, 3)
-        m[3] = round(sum(hist_counts[i] for i in range(b[1], len(hist_counts))) / total, 3)
+        m[0] = round(h[0] / total, 3)
+        m[1] = round(sum(h[1:b[0]]) / total, 3)
+        m[2] = round(sum(h[b[0]:b[1]]) / total, 3)
+        m[3] = round(sum(h[b[1]:]) / total, 3)
 
         assert abs(sum(m[0:4]) - 1) < 0.05, "histogram bands do not sum to ~1"
 
-        m[4] = round(sum((i + 1) * (hist_counts[i] / total) for i in range(len(hist_counts))), 4)
+        m[4] = round(sum((i + 1) * (h[i] / total) for i in range(len(h))), 4)
         m[5] = round(
-            sum(((i + 1) / num_dataset_members) * (hist_counts[i] / total) for i in range(len(hist_counts))),
+            sum(((i + 1) / num_dataset_members) * (h[i] / total) for i in range(len(h))),
             4,
         )
         m[6] = round(total / k, 4)
