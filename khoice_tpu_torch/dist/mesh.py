@@ -30,6 +30,12 @@ quantiles, numpy only, copied: canonical keys are min(fwd, rc) of two
 quantiles x_i = 1 - sqrt(1 - i/D) balance the ranges.  Tables and sweeps
 sample their splits from the data instead (dist/occurrence.py
 `_sampled_splits`); the per-k occurrence histogram keeps these.
+
+While a profiler records, the group's steps open spans of the layer
+`dist` (utils/trace.py): `dist:exchange` around exchange_counts and
+exchange_rows, `dist:splits` around the sampled split keys (their sample
+gathered), `dist:barrier` around KvGroup.barrier's wait on the store, and
+`dist:reduce` around all_sum and exchange_totals.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from ..engine.bits import key_words
+from ..utils import trace
 
 AXIS = "kv"
 BARRIER_POLL_S = 0.01
@@ -70,12 +77,13 @@ class KvGroup:
         the ranks wait, so no timeout runs out however long rank 0 works
         alone before it gets here."""
         store = dist.distributed_c10d._get_default_store()
-        n = store.add(f"{AXIS}/barrier/rank_{self.rank}", 1)
-        key = f"{AXIS}/barrier/{n}"
-        arrived = store.add(key, 1)
-        while arrived < self.world_size:
-            time.sleep(BARRIER_POLL_S)
-            arrived = store.add(key, 0)
+        with trace.span("dist:barrier"):
+            n = store.add(f"{AXIS}/barrier/rank_{self.rank}", 1)
+            key = f"{AXIS}/barrier/{n}"
+            arrived = store.add(key, 1)
+            while arrived < self.world_size:
+                time.sleep(BARRIER_POLL_S)
+                arrived = store.add(key, 0)
 
     def broadcast_flag(self, value: bool) -> bool:
         """Rank 0's `value`, on every rank."""
@@ -89,10 +97,11 @@ def exchange_counts(send_counts, group: KvGroup) -> list:
     shares: every rank's send_counts[r] (the rows it sends rank r) in one
     all_to_all_single of a [world] int64 tensor -> the number of rows each
     rank sends here, in rank order."""
-    send = torch.as_tensor(send_counts, dtype=torch.int64).to(group.device)
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send)
-    return recv.tolist()
+    with trace.span("dist:exchange"):
+        send = torch.as_tensor(send_counts, dtype=torch.int64).to(group.device)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        return recv.tolist()
 
 
 def exchange_rows(rows: torch.Tensor, send_counts, recv_counts) -> torch.Tensor:
@@ -100,9 +109,10 @@ def exchange_rows(rows: torch.Tensor, send_counts, recv_counts) -> torch.Tensor:
     for rank r in rank order, in one all_to_all_single with uneven splits
     -> the rows every rank sent here, [sum(recv_counts), c], in rank
     order.  Empty shares flow through."""
-    out = rows.new_empty((sum(recv_counts),) + tuple(rows.shape[1:]))
-    dist.all_to_all_single(out, rows, output_split_sizes=list(recv_counts),
-                           input_split_sizes=list(send_counts))
+    with trace.span("dist:exchange"):
+        out = rows.new_empty((sum(recv_counts),) + tuple(rows.shape[1:]))
+        dist.all_to_all_single(out, rows, output_split_sizes=list(recv_counts),
+                               input_split_sizes=list(send_counts))
     here = dist.get_rank()
     exchanged["sent"] += sum(send_counts) - send_counts[here]
     exchanged["received"] += sum(recv_counts) - recv_counts[here]
@@ -116,12 +126,13 @@ def exchange_totals(group: KvGroup, since: dict) -> list:
     rank's card (0 on the CPU)."""
     peak = (torch.cuda.max_memory_allocated(group.device)
             if group.device.type == "cuda" else 0)
-    mine = torch.tensor([exchanged["sent"] - since["sent"],
-                         exchanged["received"] - since["received"], peak],
-                        dtype=torch.int64, device=group.device)
-    parts = [torch.empty_like(mine) for _ in range(group.world_size)]
-    dist.all_gather(parts, mine)
-    return [tuple(int(x) for x in p.tolist()) for p in parts]
+    with trace.span("dist:reduce"):
+        mine = torch.tensor([exchanged["sent"] - since["sent"],
+                             exchanged["received"] - since["received"], peak],
+                            dtype=torch.int64, device=group.device)
+        parts = [torch.empty_like(mine) for _ in range(group.world_size)]
+        dist.all_gather(parts, mine)
+        return [tuple(int(x) for x in p.tolist()) for p in parts]
 
 
 def gather_rows(rows: torch.Tensor, group: KvGroup) -> list:
@@ -141,7 +152,8 @@ def gather_rows(rows: torch.Tensor, group: KvGroup) -> list:
 
 def all_sum(t: torch.Tensor) -> torch.Tensor:
     """psum: the elementwise sum of every rank's int64 `t`, in place."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    with trace.span("dist:reduce"):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
     return t
 
 

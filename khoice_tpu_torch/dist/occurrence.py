@@ -37,6 +37,7 @@ from ..engine.occurrence import _member_layout, gid_packable
 from ..kernels.extract import GID_BITS, extract_canonical, extract_packed, occ_words_static
 from ..kernels.occ_scan import occ_hist, occ_hist_packed
 from ..kernels.sort import sort_words
+from ..utils import trace
 from .mesh import KvGroup, _fraction_to_key, all_sum, gather_rows, split_keys_for
 from .sharded import exchange_ranges, make_slab, range_counts
 
@@ -93,25 +94,27 @@ def _sampled_splits(sp: torch.Tensor, n_valid: int, n_shards: int, group: KvGrou
     keys.  With gid_bits > 0 (packed words) each split is aligned down to
     a key boundary, so that no key's (key, gid) run is torn across
     ranks."""
-    w = sp.shape[0]
-    S = SPLIT_SAMPLE
-    j = torch.arange(S, dtype=torch.int64, device=sp.device)
-    idx = torch.clamp(j * (n_valid // S) + (j * (n_valid % S)) // S, max=max(n_valid - 1, 0))
-    rows = torch.full((S, w + 1), SENTINEL, dtype=torch.int64, device=sp.device)
-    if n_valid:
-        rows[:, :w] = sp[:, idx].T
-    rows[:, w] = n_valid
-    sample = torch.cat(gather_rows(rows, group)).cpu().numpy()
-    keys = sample[:, :w].astype(np.uint32)
-    weight = sample[:, w].astype(np.float64) / S
-    order = np.lexsort(keys.T[::-1])
-    cum = np.cumsum(weight[order])
-    targets = np.arange(1, n_shards, dtype=np.float64) * cum[-1] / n_shards
-    pos = np.minimum(np.searchsorted(cum, targets), cum.shape[0] - 1)
-    picked = keys[order][pos]
-    if gid_bits:
-        picked[:, -1] &= np.uint32((0xFFFFFFFF << gid_bits) & 0xFFFFFFFF)
-    return picked
+    with trace.span("dist:splits"):
+        w = sp.shape[0]
+        S = SPLIT_SAMPLE
+        j = torch.arange(S, dtype=torch.int64, device=sp.device)
+        idx = torch.clamp(j * (n_valid // S) + (j * (n_valid % S)) // S,
+                          max=max(n_valid - 1, 0))
+        rows = torch.full((S, w + 1), SENTINEL, dtype=torch.int64, device=sp.device)
+        if n_valid:
+            rows[:, :w] = sp[:, idx].T
+        rows[:, w] = n_valid
+        sample = torch.cat(gather_rows(rows, group)).cpu().numpy()
+        keys = sample[:, :w].astype(np.uint32)
+        weight = sample[:, w].astype(np.float64) / S
+        order = np.lexsort(keys.T[::-1])
+        cum = np.cumsum(weight[order])
+        targets = np.arange(1, n_shards, dtype=np.float64) * cum[-1] / n_shards
+        pos = np.minimum(np.searchsorted(cum, targets), cum.shape[0] - 1)
+        picked = keys[order][pos]
+        if gid_bits:
+            picked[:, -1] &= np.uint32((0xFFFFFFFF << gid_bits) & 0xFFFFFFFF)
+        return picked
 
 
 def _balanced(n: int, n_shards: int) -> int:

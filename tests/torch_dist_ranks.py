@@ -251,3 +251,66 @@ def solo_wait(store_path, solo_s, timeout_s):
     ones = torch.ones(1, dtype=torch.int64)
     dist.all_reduce(ones)
     return done, left, int(ones.item())
+
+
+def cli_repeat(argvs, traced_run):
+    """khoice_tpu_torch.cli.main on each argv in turn, in this rank, on the
+    group run_ranks initialised (so the CLI does not own it, as a
+    long-lived caller's group): for each run its exit code, the rows
+    dist/mesh.py's `exchanged` counted over it and the rows
+    torch.distributed.all_to_all_single moved with split sizes (watched
+    here, this rank's share left out), and the counter after it.  Run
+    `traced_run` goes under torch.profiler, and every all_to_all_single
+    call is annotated `test:all_to_all` (`test:all_to_all_rows` where it
+    has split sizes); its trace's user annotations are returned."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from khoice_tpu_torch.cli import main
+    from khoice_tpu_torch.dist import mesh
+
+    rank = dist.get_rank()
+    seen = {"sent": 0, "received": 0}
+    all_to_all_single = dist.all_to_all_single
+
+    def watched(output, input, output_split_sizes=None, input_split_sizes=None, **kw):
+        label = "test:all_to_all"
+        if input_split_sizes is not None:  # rows; the counts go without splits
+            label = "test:all_to_all_rows"
+            seen["sent"] += sum(input_split_sizes) - input_split_sizes[rank]
+            seen["received"] += sum(output_split_sizes) - output_split_sizes[rank]
+        with record_function(label):
+            return all_to_all_single(output, input, output_split_sizes, input_split_sizes, **kw)
+
+    runs, events = [], []
+    dist.all_to_all_single = watched
+    try:
+        for i, argv in enumerate(argvs):
+            counted, watched_before = dict(mesh.exchanged), dict(seen)
+            if i == traced_run:
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    rc = main(argv)
+                fd, path = tempfile.mkstemp(suffix=".json")
+                os.close(fd)
+                try:
+                    prof.export_chrome_trace(path)
+                    with open(path) as f:
+                        events = [{key: e[key] for key in ("name", "ts", "dur")}
+                                  for e in json.load(f)["traceEvents"]
+                                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+                finally:
+                    os.remove(path)
+            else:
+                rc = main(argv)
+            runs.append({"rc": rc,
+                         "counted": {key: mesh.exchanged[key] - counted[key] for key in counted},
+                         "watched": {key: seen[key] - watched_before[key] for key in seen},
+                         "after": dict(mesh.exchanged)})
+    finally:
+        dist.all_to_all_single = all_to_all_single
+    return {"rank": rank, "runs": runs, "events": events}
