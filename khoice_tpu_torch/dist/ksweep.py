@@ -56,8 +56,7 @@ from ..kernels.ksweep_scan import NIO_BITS, PACK_NIO_BITS, scan_classify, scan_m
 from ..kernels.sort import sort_words
 from ..utils.logging import get_logger
 from .mesh import KvGroup, all_sum
-from ..engine.occurrence import _member_layout
-from .occurrence import _make_slab_pair, _sampled_splits
+from .occurrence import _layout, _make_slab_pair, _sampled_splits, sharded_occurrence_histograms
 from .sharded import exchange_ranges, range_counts, rank_positions
 
 log = get_logger("khoice.dist.ksweep")
@@ -209,8 +208,7 @@ def run_sweep_plan_raw(
     Returns ({k: canonical stats, int64 np.ndarray}, the ks left to the
     caller's per-k path), equal on every rank."""
     D = group.world_size
-    codes, starts = _member_layout(member_codes)
-    n = codes.shape[0]
+    _, n = _layout(member_codes)
     budget = device_budget_bytes or default_device_budget_bytes(group.device)
     classes, remaining = plan_sweep(ks, len(member_codes))
     chunk = max(1, math.ceil(n / D))
@@ -219,7 +217,7 @@ def run_sweep_plan_raw(
         L = chunk + kmax - 1
         _check_budget(local_sweep_bytes(L, KW, packed), budget, f"{mode} sweep: local sweep",
                       group)
-        slab_codes, slab_gids = _make_slab_pair(codes, starts, D, kmax, group.rank, group.device)
+        slab_codes, slab_gids = _make_slab_pair(member_codes, D, kmax, group.rank, group.device)
         raw = _local_sweep(
             group, slab_codes, slab_gids, ks=list(cks), kmax=kmax, KW=KW,
             n_members=len(member_codes), cs=cs, chunk=chunk, packed=packed, mode=mode,
@@ -242,8 +240,8 @@ def run_sweep_plan(
     device_budget_bytes: int | None = None,
 ) -> Dict[int, List[int]]:
     """exp1's wrapper over run_sweep_plan_raw: canonical stats become
-    occurrence histogram lists padded to cx; leftover ks go to
-    `per_k_fallback(k)`."""
+    occurrence histogram lists padded to cx; the leftover ks go to
+    `per_k_fallback(ks)` in one call, which returns {k: histogram}."""
     n_members = len(member_codes)
     stats, remaining = run_sweep_plan_raw(group, member_codes, ks, cs, slack, "occ",
                                           device_budget_bytes=device_budget_bytes)
@@ -251,8 +249,8 @@ def run_sweep_plan(
     m = min(n_members, cx)
     for k, cnt in stats.items():
         out[k] = cnt[:m].tolist() + [0] * (cx - m)
-    for k in remaining:
-        out[k] = per_k_fallback(k)
+    if remaining:
+        out.update(per_k_fallback(remaining))
     return out
 
 
@@ -268,12 +266,10 @@ def sharded_occurrence_histograms_sweep(
     """Multi-rank {k: occurrence histogram} over the whole k grid, equal to
     engine.ksweep.occurrence_histograms_sweep on every rank.  Leftover ks
     (a class of < 3 ks, groups over 64 members) take the sharded per-k path
-    (dist/occurrence.py)."""
-    from .occurrence import sharded_occurrence_histogram
-
+    (dist/occurrence.py), on one slab."""
     return run_sweep_plan(
         group, member_codes, ks, cs, cx, slack,
-        per_k_fallback=lambda k: sharded_occurrence_histogram(group, member_codes, k,
-                                                              cs=cs, cx=cx),
+        per_k_fallback=lambda rest: sharded_occurrence_histograms(group, member_codes, rest,
+                                                                  cs=cs, cx=cx),
         device_budget_bytes=device_budget_bytes,
     )

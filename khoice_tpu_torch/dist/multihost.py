@@ -32,7 +32,7 @@ import numpy as np
 from ..kernels.extract import GID_BITS, PACK_KMAX
 from .ksweep import run_sweep_plan
 from .mesh import KvGroup
-from .occurrence import sharded_occurrence_histogram
+from .occurrence import sharded_occurrence_histograms
 from .vote import sharded_read_votes_multi
 
 
@@ -40,6 +40,14 @@ def local_shard_rows(group: KvGroup) -> List[int]:
     """Indices along the kv axis owned by THIS process, in group order: its
     rank (a torch.distributed process holds one rank)."""
     return [group.rank]
+
+
+def _multihost_occurrence_histograms(group, member_codes, ks, cs, cx, slack=1.5):
+    """{k: multihost_occurrence_histogram(...)} over the ks, on one slab
+    (dist/occurrence.py::sharded_occurrence_histograms)."""
+    if len(member_codes) > (1 << GID_BITS) or max(ks) > PACK_KMAX:
+        raise ValueError("multihost path supports <=256 members and k<=60")
+    return sharded_occurrence_histograms(group, member_codes, ks, cs=cs, cx=cx, slack=slack)
 
 
 def multihost_occurrence_histogram(
@@ -57,9 +65,7 @@ def multihost_occurrence_histogram(
     members and k <= 60, as in the JAX package.  `bucket_cap` is accepted
     and ignored (the shares are uneven)."""
     del bucket_cap
-    if len(member_codes) > (1 << GID_BITS) or k > PACK_KMAX:
-        raise ValueError("multihost path supports <=256 members and k<=60")
-    return sharded_occurrence_histogram(group, member_codes, k, cs=cs, cx=cx, slack=slack)
+    return _multihost_occurrence_histograms(group, member_codes, [k], cs, cx, slack)[k]
 
 
 def multihost_occurrence_histograms_sweep(
@@ -73,11 +79,12 @@ def multihost_occurrence_histograms_sweep(
 ) -> Dict[int, List[int]]:
     """The shared-sort k-sweep (dist/ksweep.py::run_sweep_plan) over the
     processes of the group: {k: histogram}, equal to the single-device
-    sweep; the ks it leaves over take multihost_occurrence_histogram."""
+    sweep; the ks it leaves over take multihost_occurrence_histogram's
+    path, all on one slab."""
     return run_sweep_plan(
         group, member_codes, ks, cs, cx, slack,
-        per_k_fallback=lambda k: multihost_occurrence_histogram(
-            group, member_codes, k, cs=cs, cx=cx, bucket_cap=bucket_cap),
+        per_k_fallback=lambda rest: _multihost_occurrence_histograms(
+            group, member_codes, rest, cs, cx),
     )
 
 

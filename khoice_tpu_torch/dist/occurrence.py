@@ -9,7 +9,9 @@ ONE exchange sends them to the rank owning their key range; there they
 are merged by one more sort, the occurrence histogram kernel (B for
 gid-packed words, C with the gid apart) counts min(occurrences, cs) into
 the bins 1..min(members, cx), and the histograms are summed over the
-group.
+group.  The ks of one group share one slab, built and uploaded once with
+the halo of the largest (`sharded_occurrence_histograms`): each k reads
+its prefix.
 
 Also here, shared with dist/sharded.py and dist/ksweep.py: the slabs of
 the packed members (`_make_slab_pair`), the packed split keys, and the
@@ -27,39 +29,57 @@ past the balanced estimate times `slack` is logged.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from ..engine.bits import SENTINEL, words_is_sentinel, words_starts
-from ..engine.occurrence import _member_layout, gid_packable
+from ..engine.occurrence import gid_packable
 from ..kernels.extract import GID_BITS, extract_canonical, extract_packed, occ_words_static
 from ..kernels.occ_scan import occ_hist, occ_hist_packed
 from ..kernels.sort import sort_words
 from ..utils import trace
 from .mesh import KvGroup, _fraction_to_key, all_sum, gather_rows, split_keys_for
-from .sharded import exchange_ranges, make_slab, range_counts
+from .sharded import exchange_ranges, range_counts
 
 SPLIT_SAMPLE = 128  # per-rank quantile-sample size for data-driven splits
 
 
-def _make_slab_pair(codes: np.ndarray, starts: np.ndarray, n_shards: int, k: int, rank: int,
+def _layout(member_codes: Sequence[np.ndarray]):
+    """(member start offsets, length) of engine/occurrence.py::_member_layout's
+    joined codes (members joined with one separator each), without joining
+    them."""
+    lengths = np.array([int(c.shape[0]) + 1 for c in member_codes], np.int64)
+    return np.cumsum(lengths) - lengths, int(lengths.sum())
+
+
+def _make_slab_pair(member_codes: Sequence[np.ndarray], n_shards: int, k: int, rank: int,
                     device):
     """Rank `rank`'s row of the JAX package's _make_slab_pair, on `device`:
-    its chunk of the packed codes (engine/occurrence.py::_member_layout:
-    members joined with one separator each, member m from starts[m]) with
-    a k-1 halo, padded to chunk + k - 1 with code 4, and each position's
-    member index (0 in the padding).  Only the codes (1 B per position)
-    cross to the device; the member indices are found there from the
-    starts, as engine/occurrence.py::pack_members expands them."""
-    n = codes.shape[0]
-    slab = make_slab(codes, n_shards, k, rank)
-    lo = rank * max(1, math.ceil(n / n_shards))
-    pos = torch.arange(lo, lo + slab.shape[0], dtype=torch.int64, device=device)
-    gids = torch.searchsorted(torch.from_numpy(starts).to(device), pos, right=True) - 1
-    gids.masked_fill_(pos >= n, 0)
-    return torch.from_numpy(slab).to(device), gids
+    its chunk of the group's packed codes (engine/occurrence.py::_member_layout)
+    with a k-1 halo, padded to chunk + k - 1 with code 4, and each
+    position's member index (0 in the padding).  The codes are the bytes of
+    dist/sharded.py::make_slab over that layout, copied from the members
+    that overlap the rank's range without joining the group.  The chunk
+    does not depend on k, so the slab for any k' <= k is the first
+    chunk + k' - 1 positions of this one.  Only the codes (1 B per
+    position) cross to the device; the member indices are found there from
+    the starts, as engine/occurrence.py::pack_members expands them."""
+    with trace.span("dist:slab"):
+        starts, n = _layout(member_codes)
+        chunk = max(1, math.ceil(n / n_shards))
+        lo = rank * chunk
+        slab = np.full(chunk + k - 1, 4, np.uint8)
+        hi = lo + slab.shape[0]
+        for start, member in zip(starts.tolist(), member_codes):
+            a, b = max(start, lo), min(start + member.shape[0], hi)
+            if a < b:
+                slab[a - lo:b - lo] = member[a - start:b - start]
+        pos = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        gids = torch.searchsorted(torch.from_numpy(starts).to(device), pos, right=True) - 1
+        gids.masked_fill_(pos >= n, 0)
+        return torch.from_numpy(slab).to(device), gids
 
 
 def split_keys_packed(k: int, n_shards: int) -> np.ndarray:
@@ -158,6 +178,38 @@ def _local_occurrence_packed(group: KvGroup, codes: torch.Tensor, gids: torch.Te
     return occ_hist_packed(m, n_bins, cs)
 
 
+def sharded_occurrence_histograms(
+    group: KvGroup,
+    member_codes: Sequence[np.ndarray],
+    ks: Sequence[int],
+    cs: int = 5000,
+    cx: int = 10000,
+    slack: float = 1.5,
+) -> Dict[int, List[int]]:
+    """{k: sharded_occurrence_histogram(group, member_codes, k, ...)} for
+    every k of `ks`, equal on every rank.  The rank's slab is built and
+    uploaded once, at the largest k, and each k runs on its first
+    chunk + k - 1 positions; it is freed before the call returns."""
+    if not ks:
+        return {}
+    D = group.world_size
+    _, n = _layout(member_codes)
+    chunk = max(1, math.ceil(n / D))
+    n_bins = min(len(member_codes), cx)
+    slab_codes, slab_gids = _make_slab_pair(member_codes, D, max(ks), group.rank, group.device)
+    out: Dict[int, List[int]] = {}
+    for k in ks:
+        packed = gid_packable(len(member_codes), k)
+        local = _local_occurrence_packed if packed else _local_occurrence
+        splits = split_keys_packed(k, D) if packed else split_keys_for(k, D)
+        L = chunk + k - 1
+        hist = local(group, slab_codes[:L], slab_gids[:L], k, cs, n_bins, splits,
+                     _balanced(n, D), slack)
+        out[k] = all_sum(hist).tolist() + [0] * (cx - n_bins)
+    del slab_codes, slab_gids
+    return out
+
+
 def sharded_occurrence_histogram(
     group: KvGroup,
     member_codes: Sequence[np.ndarray],
@@ -174,13 +226,4 @@ def sharded_occurrence_histogram(
     switch; the port has no dynamic-k path, and the static path gives
     the same histogram, so it is ignored."""
     del dynamic_k
-    D = group.world_size
-    codes, starts = _member_layout(member_codes)
-    packed = gid_packable(len(member_codes), k)
-    slab_codes, slab_gids = _make_slab_pair(codes, starts, D, k, group.rank, group.device)
-    n_bins = min(len(member_codes), cx)
-    local = _local_occurrence_packed if packed else _local_occurrence
-    splits = split_keys_packed(k, D) if packed else split_keys_for(k, D)
-    hist = local(group, slab_codes, slab_gids, k, cs, n_bins, splits,
-                 _balanced(codes.shape[0], D), slack)
-    return all_sum(hist).tolist() + [0] * (cx - n_bins)
+    return sharded_occurrence_histograms(group, member_codes, [k], cs, cx, slack)[k]

@@ -22,7 +22,10 @@ from khoice_tpu_torch.dist import sharded as sh
 from khoice_tpu_torch.dist.ksweep import sharded_occurrence_histograms_sweep
 from khoice_tpu_torch.dist.launch import run_ranks
 from khoice_tpu_torch.dist.mesh import init_kv_group
-from khoice_tpu_torch.dist.occurrence import sharded_occurrence_histogram
+from khoice_tpu_torch.dist.occurrence import (
+    sharded_occurrence_histogram,
+    sharded_occurrence_histograms,
+)
 from khoice_tpu_torch.dist.vote import sharded_read_votes_multi
 from khoice_tpu_torch.engine import ksweep_classify as kc
 from khoice_tpu_torch.engine.ksweep import occurrence_histograms_sweep
@@ -103,6 +106,28 @@ def test_sharded_tables_and_occurrence_on_the_card(group, k):
     got = sharded_occurrence_histogram(group, members, k, cx=8)
     assert occ_scan.launches["packed"] == packed + 1
     assert got == occurrence_histogram(members, k, "cuda", cx=8)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_members,length,launch", [(70, 3000, "packed"), (300, 400, "unpacked")])
+def test_many_k_occurrence_on_one_slab_on_the_card(group, n_members, length, launch):
+    """Every k of the batch reads a prefix of the one slab: kernel B past
+    the sweep's mask, kernel C past 256 members, at halos of every length."""
+    rng = np.random.default_rng(7)
+    core = rng.integers(0, 4, length).astype(np.uint8)
+    members = []
+    for _ in range(n_members):
+        g = core.copy()
+        idx = rng.choice(length, length // 20, replace=False)
+        g[idx] = rng.integers(0, 5, idx.shape[0])  # SNPs and Ns
+        members.append(g)
+    ks = [7, 16, 31, 49]
+    before = occ_scan.launches[launch]
+    got = sharded_occurrence_histograms(group, members, ks, cx=512)
+    assert occ_scan.launches[launch] == before + len(ks)
+    assert got == {k: occurrence_histogram(members, k, "cuda", cx=512) for k in ks}
+    assert got == {k: sharded_occurrence_histogram(group, members, k, cx=512) for k in ks}
 
 
 VOTE_KS = [11, 21, 33]

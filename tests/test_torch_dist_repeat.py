@@ -8,7 +8,9 @@ tests/torch_dist_ranks.py::cli_repeat).  Each run must write the
 single-device CLI's CSV bytes; dist/mesh.py's `exchanged` must count the
 rows each run moved (watched around all_to_all_single) and only rise;
 under a profiler rank 0's trace must hold the `dist` layer's spans, with
-every all_to_all_single call inside a `dist:exchange`.  Every value
+every all_to_all_single call inside a `dist:exchange` and one `dist:slab`
+for each slab the run built: one a shared-sort class and one for the ks
+each member set leaves to the per-k path.  Every value
 compared is a byte string or a row count, so the tolerance is equality.
 """
 
@@ -19,13 +21,15 @@ import torch
 import torch_dist_ranks
 from khoice_tpu_torch import cli
 from khoice_tpu_torch.dist.launch import run_ranks
+from khoice_tpu_torch.engine.ksweep import plan_sweep
 from khoice_tpu_torch.io.fasta import FastaRecord, write_fasta
 
 # tier-1 runs six xdist workers on the host's cores: torch's default of
 # one intra-op thread per core in each would oversubscribe them
 torch.set_num_threads(1)
 
-KS = "7,11,21,35"  # a shared-sort class of three ks, and 35 alone on the per-k path
+KS = "7,11,21,35"  # one shared-sort class a member set (the planner's master plan at kmax 35)
+GENOMES = 3  # a dataset's; the across set has one member a dataset
 CSVS = ("step_5/within_datasets_analysis.csv", "step_9/across_datasets_analysis.csv")
 RUNS = 3
 TRACED = 1  # the second run goes under the profiler
@@ -47,7 +51,7 @@ def repeated(tmp_path_factory):
     for num in (1, 2):
         d = root / f"dataset_{num}"
         d.mkdir()
-        for g in range(3):
+        for g in range(GENOMES):
             seq = base.copy()
             idx = rng.choice(3000, 80 * num + 40 * g, replace=False)
             seq[idx] = rng.integers(0, 4, idx.shape[0])
@@ -98,9 +102,25 @@ def test_rank0_trace_holds_the_dist_spans(repeated):
     _one, _runs, ranks = repeated
     events = ranks[0]["events"]
     names = {e["name"] for e in events}
-    assert {"dist:exchange", "dist:splits", "dist:barrier", "dist:reduce"} <= names
+    assert {"dist:exchange", "dist:splits", "dist:barrier", "dist:reduce", "dist:slab"} <= names
+    # the slab build opens its span once a build
+    assert [e["name"] for e in events].count("dist:slab") == \
+        ranks[0]["runs"][TRACED]["slab_builds"]
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == "dist:exchange"]
     calls = [e for e in events if e["name"].startswith("test:all_to_all")]
     assert any(e["name"] == "test:all_to_all_rows" for e in calls)
     for e in calls:
         assert any(s <= e["ts"] and e["ts"] + e["dur"] <= t for s, t in spans), e
+
+
+def test_every_run_builds_one_slab_a_class_and_one_a_per_k_batch(repeated):
+    _one, _runs, ranks = repeated
+    ks = [int(k) for k in KS.split(",")]
+    # two datasets of GENOMES members, then the across set of two
+    slabs = 0
+    for n_members in (GENOMES, GENOMES, 2):
+        classes, remaining = plan_sweep(ks, n_members)
+        slabs += len(classes) + bool(remaining)
+    assert slabs >= 3  # a slab at least for each member set
+    for out in ranks:
+        assert [run["slab_builds"] for run in out["runs"]] == [slabs] * RUNS, out["rank"]

@@ -259,8 +259,9 @@ def cli_repeat(argvs, traced_run):
     long-lived caller's group): for each run its exit code, the rows
     dist/mesh.py's `exchanged` counted over it and the rows
     torch.distributed.all_to_all_single moved with split sizes (watched
-    here, this rank's share left out), and the counter after it.  Run
-    `traced_run` goes under torch.profiler, and every all_to_all_single
+    here, this rank's share left out), the counter after it, and the slab
+    builds of the run (a wrapper around dist/occurrence.py::_make_slab_pair).
+    Run `traced_run` goes under torch.profiler, and every all_to_all_single
     call is annotated `test:all_to_all` (`test:all_to_all_rows` where it
     has split sizes); its trace's user annotations are returned."""
     import json
@@ -272,10 +273,17 @@ def cli_repeat(argvs, traced_run):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from khoice_tpu_torch.cli import main
+    from khoice_tpu_torch.dist import ksweep as dks
     from khoice_tpu_torch.dist import mesh
+    from khoice_tpu_torch.dist import occurrence as docc
 
     rank = dist.get_rank()
-    seen = {"sent": 0, "received": 0}
+    seen = {"sent": 0, "received": 0, "slab_builds": 0}
+    make_slab_pair = docc._make_slab_pair
+
+    def counted(*args):
+        seen["slab_builds"] += 1
+        return make_slab_pair(*args)
     all_to_all_single = dist.all_to_all_single
 
     def watched(output, input, output_split_sizes=None, input_split_sizes=None, **kw):
@@ -289,6 +297,7 @@ def cli_repeat(argvs, traced_run):
 
     runs, events = [], []
     dist.all_to_all_single = watched
+    docc._make_slab_pair = dks._make_slab_pair = counted
     try:
         for i, argv in enumerate(argvs):
             counted, watched_before = dict(mesh.exchanged), dict(seen)
@@ -309,8 +318,68 @@ def cli_repeat(argvs, traced_run):
                 rc = main(argv)
             runs.append({"rc": rc,
                          "counted": {key: mesh.exchanged[key] - counted[key] for key in counted},
-                         "watched": {key: seen[key] - watched_before[key] for key in seen},
+                         "watched": {key: seen[key] - watched_before[key]
+                                     for key in ("sent", "received")},
+                         "slab_builds": seen["slab_builds"] - watched_before["slab_builds"],
                          "after": dict(mesh.exchanged)})
     finally:
         dist.all_to_all_single = all_to_all_single
+        docc._make_slab_pair = dks._make_slab_pair = make_slab_pair
     return {"rank": rank, "runs": runs, "events": events}
+
+
+def slab_batches(case):
+    """The sharded per-k path on one slab, at this group's world size: for
+    each member set of `case["sets"]`, dist/occurrence.py's many-k entry
+    over `case["ks"]` beside its one-k calls, and exp1's sweep
+    (dist/ksweep.py::sharded_occurrence_histograms_sweep over
+    run_sweep_plan) on `case["sweep"]` over `case["sweep_ks"]`; each
+    with the ks of its slab builds (a wrapper around `_make_slab_pair`)
+    and the sizes of the groups it joined whole
+    (engine/occurrence.py::_member_layout, wherever a module of the port
+    holds it)."""
+    from khoice_tpu_torch.dist import ksweep as dks
+    from khoice_tpu_torch.dist import occurrence as docc
+    from khoice_tpu_torch.engine import occurrence as eocc
+
+    g = init_kv_group("cpu")
+    builds, joins = [], []
+    make, layout = docc._make_slab_pair, eocc._member_layout
+
+    def counted(member_codes, n_shards, k, rank, device):
+        builds.append(k)
+        return make(member_codes, n_shards, k, rank, device)
+
+    def joined(member_codes):
+        joins.append(len(member_codes))
+        return layout(member_codes)
+
+    holders = [m for name, m in sys.modules.items()
+               if name.startswith("khoice_tpu_torch.") and getattr(m, "_member_layout", None)
+               is layout]
+
+    def watched(fn):
+        builds.clear()
+        joins.clear()
+        return {"got": fn(), "builds": list(builds), "joins": list(joins)}
+
+    docc._make_slab_pair = dks._make_slab_pair = counted
+    for m in holders:
+        m._member_layout = joined
+    try:
+        out = {"world_size": g.world_size}
+        for name, members in case["sets"].items():
+            out[name] = {
+                "many": watched(lambda: docc.sharded_occurrence_histograms(
+                    g, members, case["ks"], cx=case["cx"])),
+                "one": watched(lambda: {k: sharded_occurrence_histogram(g, members, k,
+                                                                         cx=case["cx"])
+                                        for k in case["ks"]}),
+            }
+        out["sweep"] = watched(lambda: sharded_occurrence_histograms_sweep(
+            g, case["sweep"], case["sweep_ks"], cx=case["cx"]))
+    finally:
+        docc._make_slab_pair, dks._make_slab_pair = make, make
+        for m in holders:
+            m._member_layout = layout
+    return out
