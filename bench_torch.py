@@ -58,7 +58,6 @@ from khoice_tpu_torch.dist.ksweep import sharded_occurrence_histograms_sweep
 from khoice_tpu_torch.dist.launch import run_ranks
 from khoice_tpu_torch.dist.mesh import KvGroup, all_sum, init_kv_group
 from khoice_tpu_torch.engine.ksweep import (
-    _doubled_elements,
     _sweep_doubled,
     occurrence_histograms_sweep,
     occurrence_histograms_sweep_packed,
@@ -126,7 +125,8 @@ def stage_row(packed, device: torch.device) -> dict:
     codes, gids = packed
     classes, _rest = plan_sweep(K_GRID, N_GENOMES)
     kmax, KW, cks, pay_packed = classes[0]
-    te = best_s(lambda: _doubled_elements(codes, gids, kmax, KW, pay_packed), device, REPS)
+    te = best_s(lambda: extract_sweep.doubled_elements(codes, gids, kmax, KW, pay_packed), device,
+                REPS)
     tes = best_s(lambda: _sweep_doubled(codes, gids, kmax, KW, pay_packed), device, REPS)
     total_s = best_s(lambda: grid_hists(packed, N_GENOMES), device, REPS)
     return {

@@ -570,18 +570,18 @@ def sort_kernel_vs_plain(bench, members96):
     returns the kernels line's record (the unpacked 2-word class, where
     the library call computes the same function) with the largest
     difference over every case."""
-    from khoice_tpu_torch.engine.ksweep import _doubled_elements
     from khoice_tpu_torch.engine.occurrence import pack_members
     from khoice_tpu_torch.kernels import _build, extract
+    from khoice_tpu_torch.kernels.extract_sweep import doubled_elements
 
     dev = torch.device("cuda")
     errs = []
     codes, gids = pack_members(bench, dev)
-    words, _ = _doubled_elements(codes, gids, 49, 4, True)
+    words, _ = doubled_elements(codes, gids, 49, 4, True)
     stats_vs_plain("bench class", words)
     errs.append(sort_vs_plain("bench class 8x2^21 (kmax 49, packed)", words, None)["max_abs_err"])
     del words
-    words, pay = _doubled_elements(codes, gids, 30, 2, False)
+    words, pay = doubled_elements(codes, gids, 30, 2, False)
     record = sort_vs_plain("unpacked class 8x2^21 (kmax 30)", words, pay)
     del words, pay, codes, gids
     codes, gids = pack_members(members96, dev)
@@ -1085,8 +1085,8 @@ def kernel_specs(scan_plain):
         (ksweep_classify, "scan_classify", "scan_classify", scan_cls),
         (dksweep, "scan_classify", "scan_classify", scan_cls),
         (ksweep, "doubled_elements", "sweep", kxs.doubled_elements_reference),
-        (dksweep, "_doubled_elements", "sweep", kxs.doubled_elements_reference),
-        (streaming, "_extract_fwd_sweep", "sweep", kxs.extract_fwd_sweep_reference),
+        (dksweep, "doubled_elements", "sweep", kxs.doubled_elements_reference),
+        (streaming, "extract_fwd_sweep", "sweep", kxs.extract_fwd_sweep_reference),
         (occurrence, "extract_packed", "A packed", extract.extract_packed_reference),
         (doccurrence, "extract_packed", "A packed", extract.extract_packed_reference),
         (occurrence, "extract_canonical", "A keys", extract.extract_canonical_reference),

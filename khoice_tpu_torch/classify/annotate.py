@@ -28,6 +28,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..engine import members
 from ..engine.bits import key_words, words_starts
 from ..engine.occurrence import pack_members
 from ..engine.ops import _run_sums
@@ -144,8 +145,7 @@ def _to_host(out):
 
 def pack_group_texts(group_codes: List[np.ndarray], device="cuda"):
     """(codes uint8 [n], gids int64 [n]) of the per-dataset group texts on
-    `device`, packed once for every k (engine/occurrence.py::pack_members:
-    the codes go up, the gids are expanded there)."""
+    `device`, packed once for every k (engine/occurrence.py::pack_members)."""
     return pack_members(group_codes, device)
 
 
@@ -154,8 +154,7 @@ def flat_reads_device(reads_codes: np.ndarray, device="cuda"):
     separator (4) after each row, flattened, uploaded once."""
     with trace.span("engine:upload"):
         r, l = reads_codes.shape
-        flat = np.concatenate([reads_codes, np.full((r, 1), 4, reads_codes.dtype)], axis=1)
-        return torch.from_numpy(flat.reshape(-1)).to(device), r, l
+        return torch.from_numpy(members.read_rows(reads_codes)).to(device), r, l
 
 
 def concat_flat_reads(flats: Sequence[tuple]):

@@ -43,8 +43,10 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..engine import members
 from ..engine.bits import words_starts
-from ..engine.ksweep import _doubled_elements, plan_sweep
+from ..engine.ksweep import plan_sweep
+from ..engine.occurrence import pad_hist
 from ..engine.streaming import (
     _ALLOCATOR_SLACK,
     DeviceBudgetExceeded,
@@ -52,11 +54,12 @@ from ..engine.streaming import (
     check_device_budget,
     default_device_budget_bytes,
 )
+from ..kernels.extract_sweep import doubled_elements
 from ..kernels.ksweep_scan import NIO_BITS, PACK_NIO_BITS, scan_classify, scan_multi_k
 from ..kernels.sort import sort_words
 from ..utils.logging import get_logger
+from . import occurrence
 from .mesh import KvGroup, all_sum
-from .occurrence import _layout, _make_slab_pair, _sampled_splits, sharded_occurrence_histograms
 from .sharded import exchange_ranges, range_counts, rank_positions
 
 log = get_logger("khoice.dist.ksweep")
@@ -140,7 +143,7 @@ def _local_sweep(group: KvGroup, codes: torch.Tensor, gids: torch.Tensor, *, ks,
     over the group."""
     L = codes.shape[0]
     kmin = min(ks)
-    fwd, payload = _doubled_elements(codes, gids, kmax, KW, packed)
+    fwd, payload = doubled_elements(codes, gids, kmax, KW, packed)
     # own: windows [0, chunk) of each half; rank 0 owns its whole rc half
     # (the rc windows whose kmax-window would start before the text)
     own = torch.zeros(2 * L, dtype=torch.bool, device=group.device)
@@ -165,7 +168,7 @@ def _local_sweep(group: KvGroup, codes: torch.Tensor, gids: torch.Tensor, *, ks,
     # pivot's multiplicities and keeps every element
     if mode != "buckets":
         sp = sp[:, words_starts(sp)]
-    splits = _sampled_splits(sp[:KW], sp.shape[1], group.world_size, group, gid_bits=0)
+    splits = occurrence._sampled_splits(sp[:KW], sp.shape[1], group.world_size, group, gid_bits=0)
     splits = _align_splits_to_prefix(splits, kmin, KW)
     shares = range_counts(sp[:KW], splits)
     rows = sp.T.contiguous()
@@ -208,16 +211,16 @@ def run_sweep_plan_raw(
     Returns ({k: canonical stats, int64 np.ndarray}, the ks left to the
     caller's per-k path), equal on every rank."""
     D = group.world_size
-    _, n = _layout(member_codes)
     budget = device_budget_bytes or default_device_budget_bytes(group.device)
     classes, remaining = plan_sweep(ks, len(member_codes))
-    chunk = max(1, math.ceil(n / D))
+    chunk = members.chunk_len(members.layout(member_codes)[2], D)
     out: Dict[int, np.ndarray] = {}
     for kmax, KW, cks, packed in classes:
         L = chunk + kmax - 1
         _check_budget(local_sweep_bytes(L, KW, packed), budget, f"{mode} sweep: local sweep",
                       group)
-        slab_codes, slab_gids = _make_slab_pair(member_codes, D, kmax, group.rank, group.device)
+        slab_codes, slab_gids = occurrence._make_slab_pair(member_codes, D, kmax, group.rank,
+                                                           group.device)
         raw = _local_sweep(
             group, slab_codes, slab_gids, ks=list(cks), kmax=kmax, KW=KW,
             n_members=len(member_codes), cs=cs, chunk=chunk, packed=packed, mode=mode,
@@ -242,13 +245,9 @@ def run_sweep_plan(
     """exp1's wrapper over run_sweep_plan_raw: canonical stats become
     occurrence histogram lists padded to cx; the leftover ks go to
     `per_k_fallback(ks)` in one call, which returns {k: histogram}."""
-    n_members = len(member_codes)
     stats, remaining = run_sweep_plan_raw(group, member_codes, ks, cs, slack, "occ",
                                           device_budget_bytes=device_budget_bytes)
-    out: Dict[int, List[int]] = {}
-    m = min(n_members, cx)
-    for k, cnt in stats.items():
-        out[k] = cnt[:m].tolist() + [0] * (cx - m)
+    out = {k: pad_hist(cnt, len(member_codes), cx) for k, cnt in stats.items()}
     if remaining:
         out.update(per_k_fallback(remaining))
     return out
@@ -269,7 +268,7 @@ def sharded_occurrence_histograms_sweep(
     (dist/occurrence.py), on one slab."""
     return run_sweep_plan(
         group, member_codes, ks, cs, cx, slack,
-        per_k_fallback=lambda rest: sharded_occurrence_histograms(group, member_codes, rest,
-                                                                  cs=cs, cx=cx),
+        per_k_fallback=lambda rest: occurrence.sharded_occurrence_histograms(
+            group, member_codes, rest, cs=cs, cx=cx),
         device_budget_bytes=device_budget_bytes,
     )

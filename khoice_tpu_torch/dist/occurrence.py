@@ -13,9 +13,9 @@ group.  The ks of one group share one slab, built and uploaded once with
 the halo of the largest (`sharded_occurrence_histograms`): each k reads
 its prefix.
 
-Also here, shared with dist/sharded.py and dist/ksweep.py: the slabs of
-the packed members (`_make_slab_pair`), the packed split keys, and the
-data-sampled split keys (`_sampled_splits`).
+Also here, shared with dist/sharded.py and dist/ksweep.py: a rank's slab
+of the group's text on the device (`_make_slab_pair`), the packed split
+keys, and the data-sampled split keys (`_sampled_splits`).
 
 Left out: the JAX package's dynamic-k path (`_local_occurrence_dyn_packed`,
 a traced k so that one XLA compile serves a word class, with sampled
@@ -34,8 +34,9 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..engine import members
 from ..engine.bits import SENTINEL, words_is_sentinel, words_starts
-from ..engine.occurrence import gid_packable
+from ..engine.occurrence import gid_packable, pad_hist
 from ..kernels.extract import GID_BITS, extract_canonical, extract_packed, occ_words_static
 from ..kernels.occ_scan import occ_hist, occ_hist_packed
 from ..kernels.sort import sort_words
@@ -46,39 +47,15 @@ from .sharded import exchange_ranges, range_counts
 SPLIT_SAMPLE = 128  # per-rank quantile-sample size for data-driven splits
 
 
-def _layout(member_codes: Sequence[np.ndarray]):
-    """(member start offsets, length) of engine/occurrence.py::_member_layout's
-    joined codes (members joined with one separator each), without joining
-    them."""
-    lengths = np.array([int(c.shape[0]) + 1 for c in member_codes], np.int64)
-    return np.cumsum(lengths) - lengths, int(lengths.sum())
-
-
 def _make_slab_pair(member_codes: Sequence[np.ndarray], n_shards: int, k: int, rank: int,
                     device):
-    """Rank `rank`'s row of the JAX package's _make_slab_pair, on `device`:
-    its chunk of the group's packed codes (engine/occurrence.py::_member_layout)
-    with a k-1 halo, padded to chunk + k - 1 with code 4, and each
-    position's member index (0 in the padding).  The codes are the bytes of
-    dist/sharded.py::make_slab over that layout, copied from the members
-    that overlap the rank's range without joining the group.  The chunk
-    does not depend on k, so the slab for any k' <= k is the first
-    chunk + k' - 1 positions of this one.  Only the codes (1 B per
-    position) cross to the device; the member indices are found there from
-    the starts, as engine/occurrence.py::pack_members expands them."""
+    """Rank `rank`'s row of the JAX package's _make_slab_pair on `device`
+    (engine/members.py: cut without joining the group).  The slab for any
+    k' <= k is the first chunk + k' - 1 positions of this one."""
     with trace.span("dist:slab"):
-        starts, n = _layout(member_codes)
-        chunk = max(1, math.ceil(n / n_shards))
-        lo = rank * chunk
-        slab = np.full(chunk + k - 1, 4, np.uint8)
-        hi = lo + slab.shape[0]
-        for start, member in zip(starts.tolist(), member_codes):
-            a, b = max(start, lo), min(start + member.shape[0], hi)
-            if a < b:
-                slab[a - lo:b - lo] = member[a - start:b - start]
-        pos = torch.arange(lo, hi, dtype=torch.int64, device=device)
-        gids = torch.searchsorted(torch.from_numpy(starts).to(device), pos, right=True) - 1
-        gids.masked_fill_(pos >= n, 0)
+        parts, starts, n = members.layout(member_codes)
+        slab, lo = members.slab(parts, n_shards, k, rank)
+        gids = members.member_ids(starts, n, lo, lo + slab.shape[0], device)
         return torch.from_numpy(slab).to(device), gids
 
 
@@ -193,8 +170,8 @@ def sharded_occurrence_histograms(
     if not ks:
         return {}
     D = group.world_size
-    _, n = _layout(member_codes)
-    chunk = max(1, math.ceil(n / D))
+    n = members.layout(member_codes)[2]
+    chunk = members.chunk_len(n, D)
     n_bins = min(len(member_codes), cx)
     slab_codes, slab_gids = _make_slab_pair(member_codes, D, max(ks), group.rank, group.device)
     out: Dict[int, List[int]] = {}
@@ -205,7 +182,7 @@ def sharded_occurrence_histograms(
         L = chunk + k - 1
         hist = local(group, slab_codes[:L], slab_gids[:L], k, cs, n_bins, splits,
                      _balanced(n, D), slack)
-        out[k] = all_sum(hist).tolist() + [0] * (cx - n_bins)
+        out[k] = pad_hist(all_sum(hist), len(member_codes), cx)
     del slab_codes, slab_gids
     return out
 

@@ -43,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..engine import ops
+from ..engine import members, ops
 from ..engine.bits import SENTINEL, words_lt
 from ..engine.table import KmerTable, decode_key, table_from_host
 from ..utils.logging import get_logger
@@ -95,21 +95,6 @@ def session_splits(group: KvGroup, k: int, n_shards: int) -> Optional[np.ndarray
 def reset_session_splits() -> None:
     """Drop pinned split points (tests / fresh datasets with new skew)."""
     _SESSION_SPLITS.clear()
-
-
-def make_slab(codes: np.ndarray, n_shards: int, k: int, rank: int) -> np.ndarray:
-    """Rank `rank`'s row of the JAX package's make_slabs: the codes of window
-    starts [rank * chunk, (rank + 1) * chunk) and a k-1 halo, padded with
-    the invalid code 4 to chunk + k - 1, so that a k-mer across a slab
-    boundary is counted once."""
-    n = codes.shape[0]
-    chunk = max(1, math.ceil(n / n_shards))
-    out = np.full(chunk + k - 1, 4, np.uint8)
-    lo = rank * chunk
-    if lo < n:
-        part = codes[lo:lo + chunk + k - 1]
-        out[:part.shape[0]] = part
-    return out
 
 
 def rank_positions(live: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -178,7 +163,7 @@ def sharded_count_codes(group: KvGroup, codes: np.ndarray, k: int, cs: int = 255
 
     D = group.world_size
     codes = np.asarray(codes, np.uint8)
-    slab = torch.from_numpy(make_slab(codes, D, k, group.rank)).to(group.device)
+    slab = torch.from_numpy(members.slab([codes], D, k, group.rank)[0]).to(group.device)
     local = ops.count_codes(slab, k, NO_SAT)  # kernel A, the sort, run lengths
     del slab
     skey = (group, k, D)

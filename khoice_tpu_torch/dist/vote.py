@@ -2,12 +2,11 @@
 khoice_tpu/dist/vote.py; the design is documented there).
 
 The merge-join of classify/annotate.py::read_votes_bulk_multi, over the
-ranks.  The world is one stream: the group texts (a separator after each
-dataset) and then every pivot's read rows (a separator after each row),
-so no window spans two of them.  Per k, each rank:
+ranks.  The world is one text (engine/members.py): the group texts, then
+every pivot's read rows.  Per k, each rank:
 
 - takes its slab of the stream (its chunk of window starts and a kmax-1
-  halo; dist/sharded.py::make_slab) and extracts the canonical keys of its
+  halo; engine/members.py::slab) and extracts the canonical keys of its
   windows with kernel A; each valid window it owns becomes an element with
   an int64 payload: its dataset for a text window, D + its flat position
   in the reads for a query window (the single-device path's payload);
@@ -53,8 +52,8 @@ import numpy as np
 import torch
 
 from ..classify.annotate import vote_lcm
+from ..engine import members
 from ..engine.bits import key_words, words_lt
-from ..engine.occurrence import _member_layout
 from ..engine.streaming import _ALLOCATOR_SLACK, _sort_bytes, default_device_budget_bytes
 from ..kernels import vote as kvote
 from ..kernels.extract import extract_canonical
@@ -63,38 +62,36 @@ from ..utils.logging import get_logger
 from .ksweep import _check_budget
 from .mesh import KvGroup, all_sum
 from .occurrence import _sampled_splits
-from .sharded import exchange_ranges, make_slab
+from .sharded import exchange_ranges
 
 log = get_logger("khoice.dist.vote")
 
 
 def _vote_layout(group_codes: Sequence[np.ndarray], read_mats: Sequence[np.ndarray]):
-    """The world on the host: (codes uint8 [n]: the group texts, laid out
-    as engine/occurrence.py::_member_layout lays out members, then each
-    read row and a separator; the datasets' starts; the texts' length;
-    row_starts int64 [R + 1]: each read row's first position in the reads'
-    flat stream, then that stream's length; spans [(first read, reads)]
+    """The world on the host: (parts: the group texts as members, then
+    each pivot's read rows (engine/members.py); the datasets' starts; the
+    texts' length; row_starts int64 [R + 1]: each read row's first position
+    in the reads' flat stream, then its length; spans [(first read, reads)]
     per pivot)."""
-    tcodes, starts = _member_layout(group_codes)
-    parts, rows, spans = [tcodes], [], []
+    parts, starts, n_text = members.layout(group_codes)
+    rows, spans = [], []
     off = rid0 = 0
     for mat in read_mats:
         mat = np.asarray(mat, np.uint8)
         r, l = mat.shape
-        parts.append(np.concatenate([mat, np.full((r, 1), 4, np.uint8)], axis=1).reshape(-1))
+        parts.append(members.read_rows(mat))
         rows.append(off + np.arange(r, dtype=np.int64) * (l + 1))
         spans.append((rid0, r))
         off += r * (l + 1)
         rid0 += r
     row_starts = np.concatenate(rows + [np.array([off], np.int64)])
-    return np.concatenate(parts), starts, tcodes.shape[0], row_starts, spans
+    return parts, starts, n_text, row_starts, spans
 
 
 def _payload(pos: torch.Tensor, starts: torch.Tensor, n_text: int, D: int) -> torch.Tensor:
     """The payload of world positions `pos` (int64): a text position's
     dataset (< D), a read position's D + its flat position in the reads."""
-    gid = torch.searchsorted(starts, pos, right=True) - 1
-    return torch.where(pos < n_text, gid, pos + (D - n_text))
+    return torch.where(pos < n_text, members.member_index(starts, pos), pos + (D - n_text))
 
 
 def build_vote_world(group_codes: Sequence[np.ndarray], read_mats: Sequence[np.ndarray]):
@@ -103,7 +100,8 @@ def build_vote_world(group_codes: Sequence[np.ndarray], read_mats: Sequence[np.n
     position's payload is D + its flat position in the reads (the port's
     single-device payload), where the JAX package's is D + its read id;
     the driver makes the payloads of its own slab on the device instead."""
-    codes, starts, n_text, _rows, spans = _vote_layout(group_codes, read_mats)
+    parts, starts, n_text, _rows, spans = _vote_layout(group_codes, read_mats)
+    codes = members.join(parts)
     pays = _payload(torch.arange(codes.shape[0]), torch.from_numpy(starts), n_text,
                     len(group_codes))
     return codes, pays.numpy(), spans
@@ -255,12 +253,12 @@ def sharded_read_votes_multi(
     D = len(group_codes)
     kvote.check_datasets(D)
     lcm = vote_lcm(D)
-    codes, starts, n_text, row_starts, spans = _vote_layout(group_codes, read_mats)
-    n, world, dev = codes.shape[0], group.world_size, group.device
+    parts, starts, n_text, row_starts, spans = _vote_layout(group_codes, read_mats)
+    n, world, dev = n_text + int(row_starts[-1]), group.world_size, group.device
     budget = device_budget_bytes or default_device_budget_bytes(dev)
-    chunk = max(1, math.ceil(n / world))
+    chunk = members.chunk_len(n, world)
     # one slab with the largest k's halo serves every k
-    slab = torch.from_numpy(make_slab(codes, world, max(ks), group.rank)).to(dev)
+    slab = torch.from_numpy(members.slab(parts, world, max(ks), group.rank)[0]).to(dev)
     starts_d = torch.from_numpy(starts).to(dev)
     rows_d = torch.from_numpy(row_starts).to(dev)
     out: Dict[int, List[tuple]] = {}

@@ -37,11 +37,11 @@ from ..kernels.ksweep_scan import (  # noqa: F401  (PACK_NIO_BITS, scan_multi_k_
     scan_multi_k_reference,
 )
 from ..kernels.extract import occ_words_static
-from ..kernels.extract_sweep import doubled_elements, extract_fwd_sweep
+from ..kernels.extract_sweep import doubled_elements
 from ..kernels.sort import sort_words
 from ..utils import trace
 from ..utils.logging import get_logger
-from .occurrence import occurrence_histogram_packed, pack_members
+from .occurrence import occurrence_histogram_packed, pack_members, pad_hist
 
 log = get_logger("khoice.ksweep")
 
@@ -118,13 +118,6 @@ def plan_sweep(ks: Sequence[int], n_members: int,
     return split_classes, split_rest
 
 
-# The sweep's extraction (kernels/extract_sweep.py: the CUDA kernel on the
-# card, its plain version on the CPU) under this module's names, which
-# the streaming sweep, the sharded sweep and the tools call.
-_extract_fwd_sweep = extract_fwd_sweep
-_doubled_elements = doubled_elements
-
-
 def _sweep_doubled(codes: torch.Tensor, gids: torch.Tensor, kmax: int,
                    KW: int, packed: bool):
     """The doubled text's elements as ONE sorted array: (int64 [KW, n2]
@@ -144,8 +137,7 @@ def sweep_class_hists(codes: torch.Tensor, gids: torch.Tensor, n_members: int, k
         del skeys, spay
         with trace.span("engine:readback"):
             hists = ((raw[0] + raw[1]) // 2).cpu().tolist()
-            top = min(n_members, cx)
-            return {k: hists[i][:top] + [0] * (cx - top) for i, k in enumerate(cks)}
+            return {k: pad_hist(hists[i], n_members, cx) for i, k in enumerate(cks)}
 
 
 def occurrence_histograms_sweep_packed(

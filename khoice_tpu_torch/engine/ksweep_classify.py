@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels.ksweep_scan import scan_classify
+from . import members
 from .ksweep import _sweep_doubled, plan_sweep
 from .occurrence import pack_members
 from .streaming import check_device_budget, default_device_budget_bytes, incore_sweep_bytes
@@ -53,7 +54,7 @@ def _run_classes(member_codes: Sequence[np.ndarray], ks: Sequence[int], mode: st
     out: Dict[int, np.ndarray] = {}
     if not classes:
         return out, remaining
-    total = sum(int(c.shape[0]) + 1 for c in member_codes)
+    total = members.layout(member_codes)[2]
     budget = device_budget_bytes or default_device_budget_bytes(device)
     check_device_budget(incore_sweep_bytes(total, ks, n_members), budget, f"{mode} sweep",
                         device)

@@ -1,12 +1,10 @@
 """Member packing and the per-k fused occurrence path (port of
 khoice_tpu/engine/occurrence.py).
 
-Packing.  A group's members are concatenated with one separator code (4)
-after each member, and every position carries its member's gid.  The JAX
-package pads the result to a geometric shape bucket (`_padded_len`) to
-bound XLA recompiles; eager PyTorch has no recompiles, and the padding
-positions are invalid (code 4) so they change no histogram: the port
-leaves it out.
+Packing (engine/members.py).  The JAX package pads the packed text to a
+geometric shape bucket (`_padded_len`) to bound XLA recompiles; eager
+PyTorch has none, and the padding (code 4) changes no histogram: the
+port leaves it out.
 
 The per-k fused path.  What exp1 computes per (k, group) is "how many
 distinct members contain each canonical k-mer": ONE sort of (canonical
@@ -38,34 +36,27 @@ from ..kernels.extract import GID_BITS, PACK_KMAX, extract_canonical, extract_pa
 from ..kernels.occ_scan import occ_hist, occ_hist_packed, run_occurrences
 from ..kernels.sort import sort_words
 from ..utils import trace
+from . import members
 from .bits import key_words
 from .table import KmerTable
 
 
-def _member_layout(member_codes: Sequence[np.ndarray]):
-    """(concatenated codes incl. one separator after each member, member
-    start offsets)."""
-    parts = []
-    starts = [0]
-    for codes in member_codes:
-        parts.append(np.asarray(codes, np.uint8))
-        parts.append(np.full(1, 4, np.uint8))
-        starts.append(starts[-1] + codes.shape[0] + 1)
-    return np.concatenate(parts), np.asarray(starts[:-1], np.int64)
-
-
 def pack_members(member_codes: Sequence[np.ndarray], device):
-    """(codes uint8 [n], gids int64 [n]) on `device`: members joined with
-    separators, each position labelled with its member index.  Only the
-    codes (1 B per position) cross to the device; the gids are expanded
-    there from the member lengths."""
+    """(codes uint8 [n], gids int64 [n]) on `device`: the group's text
+    (engine/members.py), each position labelled with its member index.
+    Only the codes (1 B per position) cross to the device; the gids are
+    expanded there from the member lengths."""
     with trace.span("engine:upload"):
-        codes, starts = _member_layout(member_codes)
-        lengths = torch.from_numpy(np.diff(np.append(starts, codes.shape[0]))).to(device)
-        gids = torch.repeat_interleave(
-            torch.arange(len(member_codes), dtype=torch.int64, device=device), lengths
-        )
-        return torch.from_numpy(codes).to(device), gids
+        parts, starts, n = members.layout(member_codes)
+        codes = torch.from_numpy(members.join(parts)).to(device)
+        return codes, members.member_ids(starts, n, 0, n, device)
+
+
+def pad_hist(counts, n_members: int, cx: int = 10000) -> List[int]:
+    """exp1's histogram, cx ints: bins 1..min(n_members, cx) of `counts`, then 0s."""
+    m = min(n_members, cx)
+    head = counts[:m]
+    return (head if isinstance(head, list) else head.tolist()) + [0] * (cx - m)
 
 
 def gid_packable(n_members: int, k: int) -> bool:
@@ -120,7 +111,7 @@ def occurrence_histogram_packed(packed, n_members: int, k: int, cs: int = 5000,
             keys, gid = _sorted_pairs(codes, gids, k, False)
             small = occ_hist(keys, gid, n_bins, cs)
         with trace.span("engine:readback"):
-            return small.tolist() + [0] * (cx - n_bins)
+            return pad_hist(small, n_members, cx)
 
 
 def occurrence_histogram(member_codes: Sequence[np.ndarray], k: int, device,

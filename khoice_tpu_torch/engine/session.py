@@ -23,7 +23,7 @@ import torch
 
 from ..classify.annotate import Annotation, build_annotation
 from ..io.packing import encode_records
-from . import ops
+from . import members, ops
 from .occurrence import occurrence_table
 from .streaming import (
     annotation_bytes,
@@ -64,7 +64,7 @@ class KmerEngine:
 
     def occurrence_table(self, member_codes: Sequence[np.ndarray], k: int,
                          cs: int = 5000) -> KmerTable:
-        total = sum(int(c.shape[0]) + 1 for c in member_codes)
+        total = members.layout(member_codes)[2]
         self._check(max(perk_bytes(total, [k], len(member_codes)),
                         occurrence_table_bytes(total, k, len(member_codes))),
                     f"occurrence table (k={k})")

@@ -40,18 +40,14 @@ import numpy as np
 import torch
 
 from ..kernels.extract import occ_words_static
+from ..kernels.extract_sweep import extract_fwd_sweep
 from ..kernels.sort import sort_words
 from ..kernels.vote import mask_scratch_bytes
 from ..utils.logging import get_logger
+from . import members
 from .bits import SENTINEL, key_words
-from .ksweep import (
-    PACK_GID_BITS,
-    PACK_NIO_BITS,
-    _extract_fwd_sweep,
-    plan_sweep,
-    scan_multi_k,
-)
-from .occurrence import gid_packable, occurrence_histogram_packed, pack_members
+from .ksweep import PACK_GID_BITS, PACK_NIO_BITS, plan_sweep, scan_multi_k
+from .occurrence import gid_packable, occurrence_histogram_packed, pack_members, pad_hist
 
 log = get_logger("khoice.streaming")
 
@@ -346,22 +342,14 @@ def _stream_peak_bytes(total: int, KW: int, H: int, C: int, n_chunks: int, cap: 
             + max(_sort_bytes(C + H, KW), _sort_bytes(group, KW) - group * 8 * KW))
 
 
-def _doubled_codes(member_codes: Sequence[np.ndarray], C: int, H: int):
-    """Host-side doubled text (codes ++ revcomp) padded to a multiple of
-    the chunk size plus the halo, plus member start offsets for gid
-    rebuild: (codes uint8, starts int64, n, n_chunks)."""
-    parts, starts = [], [0]
-    for codes in member_codes:
-        parts.append(np.asarray(codes, np.uint8))
-        parts.append(np.full(1, 4, np.uint8))
-        starts.append(starts[-1] + parts[-2].shape[0] + 1)
-    codes = np.concatenate(parts)
-    n = codes.shape[0]
+def _doubled_codes(member_codes: Sequence[np.ndarray], C: int, H: int, n_chunks: int):
+    """(the group's text ++ its revcomp padded to n_chunks chunks plus the
+    halo, uint8; the member starts for the gids' rebuild, int64)."""
+    parts, starts, n = members.layout(member_codes)
+    codes = members.join(parts)
     rc = np.where(codes < 4, codes ^ 3, codes)[::-1]
-    n_chunks = math.ceil(2 * n / C)
     pad = n_chunks * C - 2 * n + H
-    d = np.concatenate([codes, rc, np.full(pad, 4, np.uint8)])
-    return d, np.asarray(starts[:-1], np.int64), n, n_chunks
+    return np.concatenate([codes, rc, np.full(pad, 4, np.uint8)]), starts
 
 
 def _chunk_step(d_codes: torch.Tensor, member_starts: torch.Tensor, bufs: list, n: int,
@@ -381,9 +369,9 @@ def _chunk_step(d_codes: torch.Tensor, member_starts: torch.Tensor, bufs: list, 
     # n = true text length (the doubled region is [0, 2n); anything past
     # it is chunk-alignment padding, code 4 -> invalid -> dropped)
     orig = torch.where(pos < n, pos, 2 * n - 1 - pos).clamp(0, n - 1)
-    gids = torch.searchsorted(member_starts, orig, right=True) - 1
+    gids = members.member_index(member_starts, orig)
     del pos, orig
-    fwd, _ = _extract_fwd_sweep(d_codes[start:start + C + H], gids, kmax, KW, True)
+    fwd, _ = extract_fwd_sweep(d_codes[start:start + C + H], gids, kmax, KW, True)
     del gids
     # the halo's elements belong to the next chunk: a zero nio makes them
     # sentinels, as the invalid ones
@@ -437,7 +425,7 @@ def occurrence_histograms_sweep_streaming(
     if n_members > (1 << PACK_GID_BITS):
         raise ValueError(f"packed gid field is {PACK_GID_BITS} bits")
     classes, remaining = plan_sweep(ks, n_members)
-    positions = sum(int(np.asarray(m).shape[0]) + 1 for m in member_codes)
+    positions = members.layout(member_codes)[2]
     total = 2 * positions
     out: Dict[int, List[int]] = {}
 
@@ -450,7 +438,7 @@ def occurrence_histograms_sweep_streaming(
         C, n_chunks, G, cap, R = _stream_plan(total, KW, H, kmin, device_budget_bytes,
                                               chunk_elems, n_groups, pass_groups)
         splits = _group_splits(G, kmin)
-        d, starts, n, n_chunks = _doubled_codes(member_codes, C, H)
+        d, starts = _doubled_codes(member_codes, C, H, n_chunks)
         log.info(
             "streaming class kmax=%d: %d chunks x %d elems, %d key-range groups "
             "(cap %d per chunk, %d per pass), resident codes %.1f MB, estimated peak "
@@ -482,7 +470,7 @@ def occurrence_histograms_sweep_streaming(
                 bufs = [sent.expand(KW, n_chunks * round_cap).clone() for _ in batch]
                 passes += 1
                 for c in range(n_chunks):
-                    counts = _chunk_step(d_codes, member_starts, bufs, n, c, C, H, kmax, KW,
+                    counts = _chunk_step(d_codes, member_starts, bufs, positions, c, C, H, kmax, KW,
                                          round_cap, lo, hi)
                     chunk_sorts += 1
                     for r, cnt in enumerate(counts):
@@ -512,9 +500,8 @@ def occurrence_histograms_sweep_streaming(
                  "scans, %d retry rounds", kmax, passes, chunk_sorts, G, retries)
 
         hists = ((dp[0] + dp[1]) // 2).cpu().tolist()
-        m = min(n_members, cx)
         for i, k in enumerate(cks):
-            out[k] = hists[i][:m] + [0] * (cx - m)
+            out[k] = pad_hist(hists[i], n_members, cx)
 
     if remaining:
         # Leftover ks (classes with < 3 ks never pack; empty for any real

@@ -26,11 +26,10 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Sequence
 
-import numpy as np
 import torch
 
 from ..dist.ksweep import sharded_occurrence_histograms_sweep
-from ..engine import streaming
+from ..engine import members, streaming
 from ..engine.ksweep import occurrence_histograms_sweep
 from ..engine.session import KmerEngine
 from ..io.packing import encode_records
@@ -117,7 +116,7 @@ def _run_exp1(groups, k_values, out_dir, device, engine, union_cs, count_cs, his
                 group, member_codes, ks_list, cs=union_cs, cx=hist_cx,
                 device_budget_bytes=budget,
             )
-        total = sum(int(c.shape[0]) + 1 for c in member_codes)
+        total = members.layout(member_codes)[2]
         need = streaming.incore_sweep_bytes(total, ks_list, len(member_codes))
         if need > budget:
             log.info("%s: in-core sweep ~%.1f GiB exceeds device budget %.1f GiB — "
@@ -134,12 +133,7 @@ def _run_exp1(groups, k_values, out_dir, device, engine, union_cs, count_cs, his
     if fused:
         within_all = {num: sweep_members(codes[num], f"group {num}") for num in group_nums}
         with trace.span("io:join_groups"):
-            group_concat = [
-                np.concatenate(
-                    [np.concatenate([c, np.full(1, 4, np.uint8)]) for c in codes[num]]
-                )
-                for num in group_nums
-            ]
+            group_concat = [members.join(members.layout(codes[num])[0]) for num in group_nums]
         across_all = sweep_members(group_concat, "across-groups")
     else:
         eng = engine or KmerEngine(device, budget)
@@ -165,10 +159,10 @@ def _run_exp1(groups, k_values, out_dir, device, engine, union_cs, count_cs, his
             if fused:
                 hist = within_all[num][int(k)]
             else:
-                members = [eng.set_counts(eng.count_codes(c, k, cs=count_cs), 1)
-                           for c in codes[num]]
-                union = eng.union(members, cs=union_cs)
-                del members
+                member_sets = [eng.set_counts(eng.count_codes(c, k, cs=count_cs), 1)
+                               for c in codes[num]]
+                union = eng.union(member_sets, cs=union_cs)
+                del member_sets
                 hist = eng.histogram(union, cx=hist_cx)
                 group_sets.append(eng.set_counts(union, 1))
                 del union

@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from khoice_tpu_torch.engine import ksweep
 from khoice_tpu_torch.kernels import _build, extract
 from khoice_tpu_torch.kernels import extract_sweep as kxs
 
@@ -167,13 +166,13 @@ def test_extract_sweep_edges(cuda, kmax, KW, packed):
 
 @pytest.mark.cuda
 def test_extract_sweep_engine_names_and_empty(cuda):
-    """engine/ksweep.py's names launch the kernel; n 0 launches nothing."""
+    """The names the engine calls launch the kernel; n 0 launches nothing."""
     rng = np.random.default_rng(9)
     codes = torch.from_numpy(_codes(rng, 50000)).to(cuda)
     gids = torch.from_numpy(rng.integers(0, 8, 50000)).to(cuda)
     before = dict(kxs.launches)
-    words, _ = ksweep._doubled_elements(codes, gids, 49, 4, True)
-    fwd, _ = ksweep._extract_fwd_sweep(codes, gids, 49, 4, True)
+    words, _ = kxs.doubled_elements(codes, gids, 49, 4, True)
+    fwd, _ = kxs.extract_fwd_sweep(codes, gids, 49, 4, True)
     torch.cuda.synchronize()
     assert kxs.launches == {"doubled": before["doubled"] + 1, "direct": before["direct"] + 1}
     assert torch.equal(words, kxs.doubled_elements_reference(codes, gids, 49, 4, True)[0])

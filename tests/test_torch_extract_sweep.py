@@ -77,8 +77,7 @@ def test_sweep_extraction_equals_jax(nprng, kmax, KW, packed, doubled, case):
     before = dict(kxs.launches)
     if doubled:
         got = kxs.doubled_elements(codes_t, gids_t, kmax, KW, packed)
-        assert all(torch.equal(a, b) if a is not None else b is None for a, b in zip(
-            got, tks._doubled_elements(codes_t, gids_t, kmax, KW, packed)))
+        assert tks.doubled_elements is kxs.doubled_elements  # the name the sweep calls
     else:
         got = kxs.extract_fwd_sweep(*interop.members_from_numpy(codes2, gids2, "cpu"),
                                     kmax, KW, packed)
@@ -108,12 +107,12 @@ def test_direct_slice_pads_its_end(nprng, kmax, KW, packed):
 
 
 def test_streaming_chunk_call_equals_jax(nprng):
-    """engine/ksweep.py::_extract_fwd_sweep, the name the streaming sweep
-    calls, on a chunk of a doubled text with its halo."""
+    """kernels/extract_sweep.py::extract_fwd_sweep, as the streaming sweep
+    calls it, on a chunk of a doubled text with its halo."""
     codes2, gids2 = np.concatenate([nprng.integers(0, 4, 3000, dtype=np.uint8),
                                     np.full(5, 4, np.uint8)]), nprng.integers(0, 5, 3005)
     codes_t, gids_t = interop.members_from_numpy(codes2, gids2.astype(np.uint32), "cpu")
-    got = tks._extract_fwd_sweep(codes_t[1000:2048 + 48], gids_t[1000:2048 + 48], 49, 4, True)
+    got = kxs.extract_fwd_sweep(codes_t[1000:2048 + 48], gids_t[1000:2048 + 48], 49, 4, True)
     _assert_equal(got, _jax(codes2[1000:2096], gids2[1000:2096].astype(np.uint32), 49, 4,
                             True), 1096, 4)
 

@@ -22,6 +22,7 @@ from khoice_tpu_torch.engine.streaming import (
     incore_sweep_bytes,
 )
 from khoice_tpu_torch.kernels import ksweep_scan
+from khoice_tpu_torch.kernels.extract_sweep import extract_fwd_sweep
 
 # tier-1 runs six xdist workers on the host's cores: torch's default of
 # one intra-op thread per core in each would oversubscribe them
@@ -96,7 +97,7 @@ def test_extract_fwd_sweep_bit_exact(nprng, kmax, packed):
     fj, pj = jks._extract_fwd_sweep(jnp.asarray(codes2), jnp.asarray(gids2),
                                     kmax, KW, packed=packed)
     codes_t, gids_t = interop.members_from_numpy(codes2, gids2, "cpu")
-    ft, pt = tks._extract_fwd_sweep(codes_t, gids_t, kmax, KW, packed=packed)
+    ft, pt = extract_fwd_sweep(codes_t, gids_t, kmax, KW, packed=packed)
     assert ft.shape == (KW, codes2.shape[0])
     for a, b in zip(fj, interop.words_to_numpy(ft)):
         np.testing.assert_array_equal(np.asarray(a), b)
@@ -112,8 +113,8 @@ def test_packed_sort_bit_exact(nprng, kmax):
     KW = (2 * kmax + 31) // 32
     codes2, gids2 = _doubled(_mutants(nprng, 4, 500))
     sj, _ = _jax_sorted(codes2, gids2, kmax, KW, True)
-    ft, _ = tks._extract_fwd_sweep(*interop.members_from_numpy(codes2, gids2, "cpu"),
-                                   kmax, KW, packed=True)
+    ft, _ = extract_fwd_sweep(*interop.members_from_numpy(codes2, gids2, "cpu"),
+                              kmax, KW, packed=True)
     st, _ = tks.sort_words(ft)
     for a, b in zip(sj, interop.words_to_numpy(st)):
         np.testing.assert_array_equal(np.asarray(a), b)

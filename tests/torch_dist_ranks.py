@@ -273,7 +273,6 @@ def cli_repeat(argvs, traced_run):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from khoice_tpu_torch.cli import main
-    from khoice_tpu_torch.dist import ksweep as dks
     from khoice_tpu_torch.dist import mesh
     from khoice_tpu_torch.dist import occurrence as docc
 
@@ -297,7 +296,7 @@ def cli_repeat(argvs, traced_run):
 
     runs, events = [], []
     dist.all_to_all_single = watched
-    docc._make_slab_pair = dks._make_slab_pair = counted
+    docc._make_slab_pair = counted
     try:
         for i, argv in enumerate(argvs):
             counted, watched_before = dict(mesh.exchanged), dict(seen)
@@ -324,7 +323,7 @@ def cli_repeat(argvs, traced_run):
                          "after": dict(mesh.exchanged)})
     finally:
         dist.all_to_all_single = all_to_all_single
-        docc._make_slab_pair = dks._make_slab_pair = make_slab_pair
+        docc._make_slab_pair = make_slab_pair
     return {"rank": rank, "runs": runs, "events": events}
 
 
@@ -335,51 +334,41 @@ def slab_batches(case):
     (dist/ksweep.py::sharded_occurrence_histograms_sweep over
     run_sweep_plan) on `case["sweep"]` over `case["sweep_ks"]`; each
     with the ks of its slab builds (a wrapper around `_make_slab_pair`)
-    and the sizes of the groups it joined whole
-    (engine/occurrence.py::_member_layout, wherever a module of the port
-    holds it)."""
-    from khoice_tpu_torch.dist import ksweep as dks
+    and the part counts of the texts it joined whole (a wrapper around
+    engine/members.py::join)."""
     from khoice_tpu_torch.dist import occurrence as docc
-    from khoice_tpu_torch.engine import occurrence as eocc
+    from khoice_tpu_torch.engine import members
 
     g = init_kv_group("cpu")
     builds, joins = [], []
-    make, layout = docc._make_slab_pair, eocc._member_layout
+    make, join = docc._make_slab_pair, members.join
 
     def counted(member_codes, n_shards, k, rank, device):
         builds.append(k)
         return make(member_codes, n_shards, k, rank, device)
 
-    def joined(member_codes):
-        joins.append(len(member_codes))
-        return layout(member_codes)
-
-    holders = [m for name, m in sys.modules.items()
-               if name.startswith("khoice_tpu_torch.") and getattr(m, "_member_layout", None)
-               is layout]
+    def joined(parts):
+        joins.append(len(parts))
+        return join(parts)
 
     def watched(fn):
         builds.clear()
         joins.clear()
         return {"got": fn(), "builds": list(builds), "joins": list(joins)}
 
-    docc._make_slab_pair = dks._make_slab_pair = counted
-    for m in holders:
-        m._member_layout = joined
+    docc._make_slab_pair, members.join = counted, joined
     try:
         out = {"world_size": g.world_size}
-        for name, members in case["sets"].items():
+        for name, group in case["sets"].items():
             out[name] = {
                 "many": watched(lambda: docc.sharded_occurrence_histograms(
-                    g, members, case["ks"], cx=case["cx"])),
-                "one": watched(lambda: {k: sharded_occurrence_histogram(g, members, k,
+                    g, group, case["ks"], cx=case["cx"])),
+                "one": watched(lambda: {k: sharded_occurrence_histogram(g, group, k,
                                                                          cx=case["cx"])
                                         for k in case["ks"]}),
             }
         out["sweep"] = watched(lambda: sharded_occurrence_histograms_sweep(
             g, case["sweep"], case["sweep_ks"], cx=case["cx"]))
     finally:
-        docc._make_slab_pair, dks._make_slab_pair = make, make
-        for m in holders:
-            m._member_layout = layout
+        docc._make_slab_pair, members.join = make, join
     return out

@@ -51,8 +51,9 @@ K_GRID = list(range(7, 31)) + list(range(34, 50, 3))
 
 
 def bench_stages(reps: int) -> dict:
-    from khoice_tpu_torch.engine.ksweep import _doubled_elements, plan_sweep, sort_words
+    from khoice_tpu_torch.engine.ksweep import plan_sweep, sort_words
     from khoice_tpu_torch.engine.occurrence import pack_members
+    from khoice_tpu_torch.kernels.extract_sweep import doubled_elements
     from khoice_tpu_torch.kernels.ksweep_scan import scan_multi_k
 
     dev = torch.device("cuda")
@@ -65,7 +66,7 @@ def bench_stages(reps: int) -> dict:
         ev[0].record()
         codes, gids = pack_members(members, dev)
         ev[1].record()
-        fwd, pay = _doubled_elements(codes, gids, kmax, KW, packed)
+        fwd, pay = doubled_elements(codes, gids, kmax, KW, packed)
         ev[2].record()
         words, pay = sort_words(fwd, pay)
         ev[3].record()
@@ -83,7 +84,7 @@ def bench_stages(reps: int) -> dict:
     out["total"] = sum(out[n] for n in names)
 
     codes, gids = pack_members(members, dev)
-    fwd, _ = _doubled_elements(codes, gids, kmax, KW, packed)
+    fwd, _ = doubled_elements(codes, gids, kmax, KW, packed)
     key = (fwd[0] - (1 << 31)) * (1 << 32) + fwd[1]
     times = []
     for _ in range(reps + 1):
@@ -96,7 +97,7 @@ def bench_stages(reps: int) -> dict:
     out["library_torch_sort_one_pair"] = float(np.median(times[1:]))
     del fwd, key
     out["radix_sort"] = {
-        label: sort_profile(sort_words, *_doubled_elements(codes, gids, *cls), reps)
+        label: sort_profile(sort_words, *doubled_elements(codes, gids, *cls), reps)
         for label, cls in (("bench class", (kmax, KW, packed)),
                            ("unpacked class kmax 30", (30, 2, False)))}
     return out

@@ -416,15 +416,15 @@ def vote_shapes(dev) -> dict:
 
 def sort_shapes(dev) -> dict:
     import chip_smoke
-    from khoice_tpu_torch.engine.ksweep import _doubled_elements
     from khoice_tpu_torch.engine.occurrence import pack_members
     from khoice_tpu_torch.kernels import extract
+    from khoice_tpu_torch.kernels.extract_sweep import doubled_elements
 
     rng = np.random.default_rng(0)
     out = {}
     codes, gids = pack_members(chip_smoke.random_members(rng, 8, 1 << 21), dev)
-    out["bench W4"] = (_doubled_elements(codes, gids, 49, 4, True)[0], None)
-    out["unpacked W2+pay"] = _doubled_elements(codes, gids, 30, 2, False)
+    out["bench W4"] = (doubled_elements(codes, gids, 49, 4, True)[0], None)
+    out["unpacked W2+pay"] = doubled_elements(codes, gids, 30, 2, False)
     codes, gids = pack_members(chip_smoke.random_members(rng, 96, 1 << 20), dev)
     out["perk31 W3"] = (extract.extract_packed(codes, gids, 31), None)
     out["perk49 W4"] = (extract.extract_packed(codes, gids, 49), None)
