@@ -183,7 +183,8 @@ def _check_launch(mesh_shards: int, device_name: str) -> None:
 def _run_trials(cfg: KhoiceConfig, args, device, group) -> int:
     from .pipelines.exp0 import load_database_dir
 
-    db = load_database_dir(cfg.database_root)
+    # exp1 hands the device codes: it takes each genome straight to them
+    db = load_database_dir(cfg.database_root, codes=cfg.exp_type == 1)
     if not db:
         raise SystemExit(f"no dataset_N directories under {cfg.database_root}")
 

@@ -1,8 +1,9 @@
 # Copied from khoice_tpu/io/fasta.py.
 """FASTA / FASTA.gz reading and writing (host side).
 
-The port's copy differs in one respect: the native scanner raises when it
-cannot be built (see below).
+The port's copy differs in two respects: the native scanner raises when it
+cannot be built (see below), and `read_fasta_files` reads many files at
+once on a pool of threads, as records or straight to engine codes.
 
 Covers the file-format surface the reference gets from seqtk/samtools:
 - multi-record FASTA (.fna/.fa), optionally gzip-compressed (the reference's
@@ -22,16 +23,19 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import Iterable, List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, List, Sequence
 
 import numpy as np
 
 from ..utils import trace
+from .packing import SEP_CODE, encode_seq, join_codes
 
 __all__ = [
     "FastaRecord",
     "read_fasta",
     "read_fasta_codes",
+    "read_fasta_files",
     "write_fasta",
     "fasta_lengths",
     "total_length",
@@ -96,6 +100,8 @@ def _codec_lib():
             lib = ctypes.CDLL(so)
         except OSError as exc:
             raise NativeCodecError(f"cannot load {so}: {exc}") from exc
+        lib.fasta_max_records.restype = ctypes.c_int64
+        lib.fasta_max_records.argtypes = [ctypes.c_char_p, ctypes.c_int64]
         lib.fasta_scan.restype = ctypes.c_int64
         lib.fasta_scan.argtypes = [
             ctypes.c_char_p,
@@ -104,21 +110,22 @@ def _codec_lib():
             ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64,
             ctypes.c_int,
+            ctypes.c_int,
         ]
         _CODEC_LIB = lib
         return _CODEC_LIB
 
 
-def _scan_native(data: bytes, to_codes: bool):
-    """Returns (names, [sequence slices of seq_buf]), or None under
-    KHOICE_NO_NATIVE."""
-    lib = _codec_lib()
-    if lib is None:
-        return None
+def _scan_native(lib, data: bytes, to_codes: bool, sep: int = -1):
+    """(seq_buf, bounds): the records' sequences laid end to end in
+    seq_buf, `sep` between two of them when it is >= 0, and an int64
+    [records, 4] array of each record's name start and end in `data` and
+    sequence start and end in seq_buf.  Both ctypes calls release the
+    interpreter lock."""
     n = len(data)
-    max_recs = data.count(b">") + 1
+    max_recs = lib.fasta_max_records(data, n)
     seq_buf = np.empty(max(n, 1), np.uint8)
-    rec = np.zeros(4 * max_recs, np.int64)
+    rec = np.empty((max_recs, 4), np.int64)
     nr = lib.fasta_scan(
         data,
         n,
@@ -126,15 +133,11 @@ def _scan_native(data: bytes, to_codes: bool):
         rec.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         max_recs,
         1 if to_codes else 0,
+        sep,
     )
     if nr < 0:  # more records than the '>' count allows: cannot happen
         raise RuntimeError(f"fasta_scan failed ({nr}) on {n} bytes")
-    names, seqs = [], []
-    for r in range(nr):
-        ns, ne, ss, se = rec[4 * r : 4 * r + 4]
-        names.append(data[ns:ne].decode("ascii", errors="replace"))
-        seqs.append(seq_buf[ss:se])
-    return names, seqs
+    return seq_buf, rec[:nr]
 
 
 @dataclasses.dataclass
@@ -143,24 +146,68 @@ class FastaRecord:
     seq: str
 
 
-def _open_maybe_gz(path: str, mode: str = "rt"):
-    if str(path).endswith(".gz"):
-        return gzip.open(path, mode)
-    return open(path, mode)
+def _file_bytes(path: str) -> bytes:
+    """The file's text, inflated when its name ends in .gz (every gzip
+    member, as gzip.open reads them); zlib releases the interpreter lock
+    while it inflates."""
+    with open(path, "rb") as fd:
+        data = fd.read()
+    return gzip.decompress(data) if str(path).endswith(".gz") else data
+
+
+def _read_file(path: str, codes: bool):
+    """One file's records (FastaRecords), or with codes=True their
+    sequences' engine codes joined with one SEP_CODE between records, as
+    io/packing.encode_records joins them.  Opens no span: the pool's
+    threads run it, and only the caller's thread opens spans."""
+    data = _file_bytes(path)
+    lib = _codec_lib()
+    if lib is None:
+        records = _read_fasta_py(data)
+        return join_codes([r.seq for r in records]) if codes else records
+    if codes:
+        seq_buf, rec = _scan_native(lib, data, to_codes=True, sep=int(SEP_CODE))
+        return seq_buf[: rec[-1, 3] if len(rec) else 0]
+    seq_buf, rec = _scan_native(lib, data, to_codes=False)
+    view = memoryview(seq_buf)
+    return [
+        FastaRecord(data[ns:ne].decode("ascii", errors="replace"),
+                    str(view[ss:se], "ascii", "replace"))
+        for ns, ne, ss, se in rec.tolist()
+    ]
 
 
 def read_fasta(path: str) -> List[FastaRecord]:
     with trace.span("io:read_fasta"):
-        with _open_maybe_gz(path, "rb") as fd:
-            data = fd.read()
-        scanned = _scan_native(data, to_codes=False)
-        if scanned is not None:
-            names, seqs = scanned
-            return [
-                FastaRecord(nm, sq.tobytes().decode("ascii", errors="replace"))
-                for nm, sq in zip(names, seqs)
-            ]
-        return _read_fasta_py(data)
+        return _read_file(path, codes=False)
+
+
+# files read through read_fasta_files since the last reset, by form
+pooled_files = {"codes": 0, "str": 0}
+
+
+def pool_width(n_files: int) -> int:
+    """Threads to read n_files with: the CPUs this process may run on,
+    shared by the ranks this host runs (LOCAL_WORLD_SIZE, else WORLD_SIZE,
+    else 1, as the CLI reckons them), at least 1 and at most n_files."""
+    world = os.environ.get("WORLD_SIZE", "1")
+    ranks = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    return max(1, min(n_files, len(os.sched_getaffinity(0)) // ranks))
+
+
+def read_fasta_files(paths: Sequence[str], codes: bool = False) -> list:
+    """Every file of `paths` read at once, on pool_width(len(paths))
+    threads, each file's reading, inflating and scanning without the
+    interpreter lock.  One result a path, in order: its FastaRecords, as
+    read_fasta gives them, or with codes=True one uint8 array, its records'
+    codes joined as io/packing.encode_records joins them.  The calling
+    thread holds one `io:read_fasta` span over the whole read."""
+    with trace.span("io:read_fasta"):
+        _codec_lib()  # built or loaded here, so that a failed build raises once, here
+        with ThreadPoolExecutor(pool_width(len(paths))) as pool:
+            out = list(pool.map(lambda p: _read_file(p, codes), paths))
+    pooled_files["codes" if codes else "str"] += len(paths)
+    return out
 
 
 def _read_fasta_py(data: bytes) -> List[FastaRecord]:
@@ -191,14 +238,13 @@ def read_fasta_codes(path: str):
     engine's A=0 C=1 G=2 T=3 / 4=invalid encoding (io/packing.py) in one
     pass over the decompressed bytes.
     """
-    with _open_maybe_gz(path, "rb") as fd:
-        data = fd.read()
-    scanned = _scan_native(data, to_codes=True)
-    if scanned is not None:
-        return list(zip(scanned[0], [s.copy() for s in scanned[1]]))
-    from .packing import encode_seq
-
-    return [(r.name, encode_seq(r.seq)) for r in _read_fasta_py(data)]
+    data = _file_bytes(path)
+    lib = _codec_lib()
+    if lib is None:
+        return [(r.name, encode_seq(r.seq)) for r in _read_fasta_py(data)]
+    seq_buf, rec = _scan_native(lib, data, to_codes=True)
+    return [(data[ns:ne].decode("ascii", errors="replace"), seq_buf[ss:se].copy())
+            for ns, ne, ss, se in rec.tolist()]
 
 
 def write_fasta(path: str, records: Iterable[FastaRecord], width: int = 60, gz: bool | None = None):

@@ -31,6 +31,20 @@ def encode_seq(seq: str | bytes) -> np.ndarray:
     return _LUT[arr]
 
 
+def join_codes(seqs: Iterable[str]) -> np.ndarray:
+    """The sequences' codes in one array, one separator between two."""
+    parts = []
+    first = True
+    for s in seqs:
+        if not first:
+            parts.append(np.array([SEP_CODE]))
+        parts.append(encode_seq(s))
+        first = False
+    if not parts:
+        return np.zeros(0, np.uint8)
+    return np.concatenate(parts)
+
+
 def encode_records(seqs: Iterable[str], pad_to: int | None = None) -> np.ndarray:
     """Encode multiple sequences into one code array with separators.
 
@@ -38,17 +52,7 @@ def encode_records(seqs: Iterable[str], pad_to: int | None = None) -> np.ndarray
     shapes keep XLA recompilation bounded; pad windows are invalid anyway).
     """
     with trace.span("io:encode"):
-        parts = []
-        first = True
-        for s in seqs:
-            if not first:
-                parts.append(np.array([SEP_CODE]))
-            parts.append(encode_seq(s))
-            first = False
-        if not parts:
-            out = np.zeros(0, np.uint8)
-        else:
-            out = np.concatenate(parts)
+        out = join_codes(seqs)
     if pad_to is not None:
         if out.shape[0] > pad_to:
             raise ValueError(f"encoded length {out.shape[0]} exceeds pad_to {pad_to}")

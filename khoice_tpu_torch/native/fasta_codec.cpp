@@ -10,6 +10,14 @@
 // engine's encoding, khoice_tpu/io/packing.py) plus per-record name/seq
 // bounds. Bound via ctypes (no pybind11 in the image).
 //
+// The port's copy differs in three respects: fasta_max_records bounds the
+// record count without a pass in Python, fasta_scan can write a separator
+// byte between records (the records' codes joined as the port's
+// io/packing.encode_records joins them, with no copy after the scan), and
+// sequence bytes before the first header are skipped, not written. Both
+// run without the interpreter lock (ctypes releases it), so a pool of
+// threads scans files side by side.
+//
 // Build: g++ -O3 -shared -fPIC fasta_codec.cpp -o libkhoice_fasta.so
 
 #include <cstdint>
@@ -39,18 +47,35 @@ const Luts LUTS;
 
 }  // namespace
 
+// A bound on the records fasta_scan finds in data[0, n): one more than
+// the number of '>' bytes, as its max_recs.
+extern "C" int64_t fasta_max_records(const uint8_t* data, int64_t n) {
+    int64_t count = 1;
+    const uint8_t* p = data;
+    const uint8_t* end = data + n;
+    while (p < end) {
+        p = static_cast<const uint8_t*>(memchr(p, '>', static_cast<size_t>(end - p)));
+        if (!p) break;
+        count++;
+        p++;
+    }
+    return count;
+}
+
 // Scan FASTA text. data/n: decompressed file bytes. seq_out: caller buffer
 // of >= n bytes receiving concatenated record sequences (uppercased bytes,
-// or engine codes when to_codes != 0). rec: caller buffer of 4*max_recs
-// int64s; record r gets {name_start, name_end} (byte offsets into data;
-// the name is the header token up to the first whitespace, matching the
-// Python reader's `line[1:].split()[0]`) and {seq_start, seq_end} (offsets
-// into seq_out). Sequence bytes before the first header are dropped, like
-// the Python reader. Returns the record count, or -1 if it exceeds
-// max_recs.
+// or engine codes when to_codes != 0), with the byte sep written between
+// two records' sequences when sep >= 0 (each record's '>' leaves room for
+// it). rec: caller buffer of 4*max_recs int64s; record r gets
+// {name_start, name_end} (byte offsets into data; the name is the header
+// token up to the first whitespace, matching the Python reader's
+// `line[1:].split()[0]`) and {seq_start, seq_end} (offsets into seq_out;
+// a separator lies outside both records' bounds). Sequence bytes before
+// the first header are dropped, like the Python reader. Returns the record
+// count, or -1 if it exceeds max_recs.
 extern "C" int64_t fasta_scan(const uint8_t* data, int64_t n,
                               uint8_t* seq_out, int64_t* rec,
-                              int64_t max_recs, int to_codes) {
+                              int64_t max_recs, int to_codes, int sep) {
     const uint8_t* lut = to_codes ? LUTS.code : LUTS.upper;
     int64_t nr = -1;  // current record index
     int64_t so = 0;   // seq_out write position
@@ -62,7 +87,10 @@ extern "C" int64_t fasta_scan(const uint8_t* data, int64_t n,
         if (state == 0) {
             if (c == '>') {
                 if (nr + 1 >= max_recs) return -1;
-                if (nr >= 0) rec[4 * nr + 3] = so;
+                if (nr >= 0) {
+                    rec[4 * nr + 3] = so;
+                    if (sep >= 0) seq_out[so++] = static_cast<uint8_t>(sep);
+                }
                 nr++;
                 rec[4 * nr + 0] = i + 1;
                 rec[4 * nr + 1] = i + 1;
@@ -109,6 +137,7 @@ extern "C" int64_t fasta_scan(const uint8_t* data, int64_t n,
         int64_t end = nl ? (nl - data) : n;
         int64_t len = end - i;
         if (len > 0 && data[end - 1] == '\r') len--;
+        if (nr < 0) len = 0;  // before the first header: no record's bytes
         for (int64_t j = 0; j < len; j++) {
             seq_out[so + j] = lut[data[i + j]];
         }

@@ -18,7 +18,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..config import KhoiceConfig
-from ..io.fasta import FastaRecord, read_fasta, write_fasta
+from ..io.fasta import FastaRecord, read_fasta_files, write_fasta
 from ..sim.reads import sim_illumina, sim_ont, subset_reads_kmers
 from ..utils import trace
 
@@ -121,18 +121,24 @@ def _write_trial_summary(out_dir, trial, nums, pivots, nonpivots, reads_out):
             )
 
 
-def load_database_dir(database_root: str) -> Dict[int, Dict[str, List[str]]]:
-    """Read a reference-layout database dir: dataset_{i}/*.fna.gz."""
-    out: Dict[int, Dict[str, List[str]]] = {}
+def load_database_dir(database_root: str, codes: bool = False) -> Dict[int, Dict]:
+    """Read a reference-layout database dir: dataset_{i}/*.fna.gz, every
+    file at once (io/fasta.read_fasta_files).  {dataset_num: {genome_name:
+    [record seqs]}}, genomes in file-name order; with codes=True each
+    genome is its records' codes joined as io/packing.encode_records joins
+    them."""
+    files = []  # (dataset_num, genome_name, path)
     i = 1
     with trace.span("io:read_database"):
         while os.path.isdir(os.path.join(database_root, f"dataset_{i}")):
             ddir = os.path.join(database_root, f"dataset_{i}")
-            genomes = {}
             for f in sorted(os.listdir(ddir)):
                 if f.endswith(".fna.gz") or f.endswith(".fna") or f.endswith(".fa"):
                     name = f.split(".fna")[0].split(".fa")[0]
-                    genomes[name] = [r.seq for r in read_fasta(os.path.join(ddir, f))]
-            out[i] = genomes
+                    files.append((i, name, os.path.join(ddir, f)))
             i += 1
+        read = read_fasta_files([path for _, _, path in files], codes=codes)
+        out: Dict[int, Dict] = {num: {} for num in range(1, i)}
+        for (num, name, _), genome in zip(files, read):
+            out[num][name] = genome if codes else [r.seq for r in genome]
     return out

@@ -26,6 +26,7 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from ..dist.ksweep import sharded_occurrence_histograms_sweep
@@ -54,7 +55,7 @@ log = get_logger("khoice.exp1")
 
 
 def run_exp1(
-    groups: Dict[int, List[List[str]]],
+    groups: Dict[int, List[List[str] | np.ndarray]],
     k_values: Sequence[int],
     out_dir: str,
     device,
@@ -67,8 +68,10 @@ def run_exp1(
     device_budget_bytes: int | None = None,
     group=None,
 ) -> Dict[str, str]:
-    """groups: {group_num: [genome as list-of-record-seqs, ...]}; every
-    sweep and table op runs on `device`.
+    """groups: {group_num: [genome, ...]}, a genome as its list of record
+    seqs or as its codes (uint8, the records joined as encode_records joins
+    them, as pipelines/exp0.load_database_dir(..., codes=True) reads them);
+    every sweep and table op runs on `device`.
 
     fused=True takes the shared-sort sweep; a group whose in-core sweep
     would exceed `device_budget_bytes` (default
@@ -99,9 +102,10 @@ def _run_exp1(groups, k_values, out_dir, device, engine, union_cs, count_cs, his
     ks_list = [int(k) for k in k_values]
     budget = device_budget_bytes or streaming.default_device_budget_bytes(device)
 
-    # encode each genome once; every k reuses the codes
+    # encode each genome given as records once; every k reuses the codes
     codes = {
-        num: [encode_records(seqs) for seqs in groups[num]] for num in group_nums
+        num: [g if isinstance(g, np.ndarray) else encode_records(g) for g in groups[num]]
+        for num in group_nums
     }
 
     if group is not None and not fused:

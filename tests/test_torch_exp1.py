@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +15,7 @@ from khoice_tpu.engine.session import KmerEngine as JaxEngine
 from khoice_tpu.pipelines.exp1 import run_exp1 as jax_run_exp1
 from khoice_tpu_torch.engine.session import KmerEngine
 from khoice_tpu_torch.engine.streaming import DeviceBudgetExceeded
+from khoice_tpu_torch.pipelines.exp0 import load_database_dir
 from khoice_tpu_torch.pipelines.exp1 import run_exp1
 from test_exp1 import make_groups, oracle_exp1_csvs
 
@@ -87,6 +89,31 @@ def _write_db(root, rng, n_datasets=2, n_genomes=2, glen=400):
             with open(os.path.join(root, f"dataset_{d}", f"genome_{g}.fna"), "w") as fd:
                 fd.write(f">d{d}g{g}\n{random_dna(rng, glen, n_prob=0.01)}\n"
                          f">d{d}g{g}_p\n{random_dna(rng, 90)}\n")
+
+
+@pytest.mark.parametrize(("ks", "fused"), [([11, 21, 31, 35], True), ([15, 21], True),
+                                           ([11, 31], False)])
+def test_exp1_codes_and_records_write_equal_files(rng, tmp_path, ks, fused):
+    """run_exp1 on the genomes as load_database_dir(..., codes=True) reads
+    them (uint8 code arrays) and as record strings (encoded by exp1):
+    every step_4/5/8/9 file byte-equal, through the sweep, the per-k path
+    and the table ops."""
+    db = tmp_path / "db"
+    _write_db(str(db), rng, n_genomes=3)
+    with open(db / "dataset_1" / "genome_2.fna", "a") as fd:  # an empty record, lower case
+        fd.write(">empty\n>low\nacgtnacgtacgtaaccggtt\n")
+    outs = {}
+    for form in ("codes", "records"):
+        loaded = load_database_dir(str(db), codes=form == "codes")
+        groups = {num: [loaded[num][name] for name in sorted(loaded[num])] for num in loaded}
+        assert all(isinstance(g, np.ndarray) == (form == "codes")
+                   for genomes in groups.values() for g in genomes)
+        run_exp1(groups, ks, str(tmp_path / form), "cpu", fused=fused)
+        outs[form] = {os.path.relpath(os.path.join(d, f), tmp_path / form): _read(os.path.join(d, f))
+                      for d, _, files in os.walk(tmp_path / form) for f in files}
+    assert sorted({rel.split(os.sep)[0] for rel in outs["codes"]}) == [
+        "step_4", "step_5", "step_8", "step_9"]
+    assert outs["codes"] == outs["records"]
 
 
 def _cli(*args):

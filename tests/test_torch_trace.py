@@ -7,6 +7,7 @@ spans are on the CUDA path only (tests/test_torch_trace_cuda.py)."""
 import contextlib
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -23,7 +24,8 @@ from khoice_tpu_torch.utils import trace
 torch.set_num_threads(1)
 
 READS = ["cli:run", "io:read_database", "io:read_fasta"]
-EXP1 = READS + ["pipeline:exp1", "io:encode", "io:join_groups", "engine:upload",
+# exp1 reads the database straight to codes: it opens no io:encode
+EXP1 = READS + ["pipeline:exp1", "io:join_groups", "engine:upload",
                 "reports:write_hist", "reports:summarize", "reports:csv"]
 # the span each of these has as its innermost enclosing one
 PARENTS = {"io:read_database": {"cli:run"}, "pipeline:exp1": {"cli:run"},
@@ -91,8 +93,15 @@ def test_span_without_a_profiler_is_the_shared_null_context():
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_run_spans_nest_in_cli_run(tmp_path, case):
+def test_run_spans_nest_in_cli_run(tmp_path, monkeypatch, case):
     argv, want = CASES[case]
+    opened_on = set()  # the threads that open a span, recorded or not
+
+    def span(name, _span=trace.span):
+        opened_on.add(threading.get_ident())
+        return _span(name)
+
+    monkeypatch.setattr(trace, "span", span)
     db, work = tmp_path / "db", tmp_path / "work"
     _write_db(str(db))
     common = ["--database-root", str(db), "--work-root", str(work), "--device", "cpu"]
@@ -103,12 +112,18 @@ def test_run_spans_nest_in_cli_run(tmp_path, case):
     spans = _spans(prof, tmp_path / "trace.json")
     names = {s[0] for s in spans}
     assert set(want) <= names, sorted(set(want) - names)
-    if argv[1] == "1":  # exp1 reports from the histograms in memory
-        assert "reports:read_hist" not in names
+    if argv[1] == "1":  # exp1 reports from the histograms in memory, from codes read as such
+        assert "reports:read_hist" not in names and "io:encode" not in names
+        # the database's files in one pooled read, under one io:read_fasta
+        reads = [s for s in spans if s[0] == "io:read_fasta"]
+        assert len(reads) == 1 and _parent(reads[0], spans)[0] == "io:read_database"
     assert not any(n.startswith("kernel:") for n in names)  # the CUDA path's
     runs = [s for s in spans if s[0] == "cli:run"]
     assert len(runs) == 1
     run = runs[0]
+    # the read's pool threads open no span: every program span is on the run's thread
+    assert {s[3] for s in spans if ":" in s[0]} == {run[3]}
+    assert opened_on == {threading.get_ident()}
     for span in spans:
         if span is run or ":" not in span[0]:
             continue
